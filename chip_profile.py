@@ -1,18 +1,25 @@
-"""Profile the port's main path on an NVIDIA GPU: where a slab's time goes.
+"""Profile the port's main paths on an NVIDIA GPU: where the time goes.
 
-    python3 chip_profile.py
+    python3 chip_profile.py            # the live monitor's ingest
+    python3 chip_profile.py --audit    # the batched fleet audit
 
-Builds the same 100,000-device fleet as ``chip_smoke.py``, warms both
-monitors up, then traces the ingest of two grid slabs (``replay``'s
-path) and of one permuted flattened slab with ``torch.profiler``; the
-slabs are built before tracing starts, so the sensor source and the
-permutation stay out of the trace.  Prints, per path, the wall time, the
-device-busy share (summed kernel time over wall time) and the operations
-with the most device time.  Writes the Chrome traces to
-``chiprun_out/``.
+The monitor: builds the same 100,000-device fleet as ``chip_smoke.py``,
+warms both monitors up, then traces the ingest of two grid slabs
+(``replay``'s path) and of one permuted flattened slab with
+``torch.profiler``; the slabs are built before tracing starts, so the
+sensor source and the permutation stay out of the trace.
+
+The audit: warms up with a 96-device audit, then traces
+``chip_smoke.py``'s 100,000-device ``fleet_audit`` (naive and §5, every
+transient kind, 25,000-device slabs).
+
+Prints, per trace, the wall time, the device-busy share (summed kernel
+time over wall time) and the operations with the most device time.
+Writes the Chrome traces to ``chiprun_out/``.
 """
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -25,7 +32,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out")
 
 
-def traced(label, fn):
+def traced(label, fn, host_table=False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -45,17 +52,46 @@ def traced(label, fn):
           f"{1 - dev_us / 1e6 / wall:.1%}", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=22,
                        max_name_column_width=60), flush=True)
+    if host_table:
+        print(events.table(sort_by="self_cpu_time_total", row_limit=22,
+                           max_name_column_width=60), flush=True)
+    for e in events:
+        if e.device_type == DeviceType.CUDA and "log_filter" in e.key:
+            print(f"{e.key}: {e.count} launches, "
+                  f"{e.self_device_time_total / 1e3:.3f} ms on the device",
+                  flush=True)
     os.makedirs(OUT, exist_ok=True)
     prof.export_chrome_trace(os.path.join(OUT, f"trace_{label}.json"))
 
 
+def audit(dev) -> None:
+    from repro_torch.core.fleet_engine import fleet_audit
+    names = cs.audit_fleet()
+
+    def run(n, chunk):
+        fleet_audit(n, names[:n], seed=cs.SEED, good_practice=True,
+                    n_trials=cs.AUDIT_TRIALS, chunk_devices=chunk,
+                    device=dev)
+
+    run(96, 40)                                          # warm-up
+    traced("audit_100k", lambda: run(cs.AUDIT_DEVICES, cs.AUDIT_CHUNK),
+           host_table=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--audit", action="store_true",
+                    help="trace the fleet audit instead of the monitor")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.core.stream import replay
     dev = torch.device("cuda", 0)
     print(torch.cuda.get_device_name(0), flush=True)
+    if args.audit:
+        audit(dev)
+        return 0
     names, _, shifts, bank = cs.fleet(dev, cs.N_DEVICES)
 
     grid = cs.monitor(dev, names, shifts)

@@ -1,24 +1,34 @@
-"""Drive the PyTorch/CUDA port's main path once on an NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the checkout's ``src/``.  Phases, each of which fails the run:
 
-1. print the card's name and power limit, build both CUDA kernels;
-2. hold each kernel against its plain PyTorch version on the card, at
-   small adversarial shapes and at the main path's slab shapes, and time
-   both;
-3. the main path: a 100,000-device fleet (half ``a100``, half
-   ``h100_instant``) polled every 1 ms in 0.5 s ticks for 10 s through
-   ``replay(grid=True)`` (the ``stream_ingest_grid`` kernel), a second
-   monitor taking the first 2 s as permuted flattened slabs through
-   ``ingest`` (the ``stream_ingest`` kernel) and matching the first at
-   2 s, then a batch of queries through ``MonitorQueryService``; then
-   both streams again with their slabs built beforehand, to time ingest
-   alone;
-4. a small fleet through the port on the card and on the CPU (the plain
-   path the CPU tests hold against the JAX package), which must agree.
+1. print the card's name and power limit, build the three CUDA kernels
+   (one ``nvcc`` each, started together) and print their registers and
+   spills;
+2. hold the monitor's two kernels against their plain PyTorch versions on
+   the card, at small adversarial shapes and at the main path's slab
+   shapes, and time both;
+3. the live monitor's main path: a 100,000-device fleet (half ``a100``,
+   half ``h100_instant``) polled every 1 ms in 0.5 s ticks for 10 s
+   through ``replay(grid=True)`` (the ``stream_ingest_grid`` kernel), a
+   second monitor taking the first 2 s as permuted flattened slabs
+   through ``ingest`` (the ``stream_ingest`` kernel) and matching the
+   first at 2 s, then a batch of queries through ``MonitorQueryService``;
+   then both streams again with their slabs built beforehand, to time
+   ingest alone;
+4. a small fleet through the monitor on the card and on the CPU (the
+   plain path the CPU tests hold against the JAX package), which must
+   agree;
+5. the batched fleet audit's main path: ``log_filter`` against its plain
+   version at small adversarial shapes; a 96-device audit on the card
+   and on the CPU, which must agree; then ``fleet_audit`` over 100,000
+   devices of every transient kind (Fig. 14) with the naive and §5
+   protocols, its per-profile errors, its streamed moments against the
+   exact ones, and ``log_filter`` held against its plain version and
+   timed at the largest shape the audit gave it.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -50,11 +60,24 @@ FP64_OPS_PER_S = 34e12
 #: float64 operations per sample (sample_math in csrc/scan.cuh, the
 #: scans and the row reductions; a division counts as one)
 OPS_PER_SAMPLE = {"stream_ingest": 35, "stream_ingest_grid": 35}
+#: log_filter's float64 operations, an exp counted as one: per tick the
+#: decay (sub, neg, div, exp, sub, mul, add) and one compare per step of
+#: the binary search; per (row, segment) the filter step (the same seven)
+LOG_FILTER_OPS_PER_TICK = 7
+LOG_FILTER_OPS_PER_STEP = 7
+#: the audit: 99,000 devices in six equal shares (every transient kind of
+#: Fig. 14) and 1,000 module-scope GH200 sensors, in 25,000-device slabs
+AUDIT_KINDS = ("a100", "h100_instant", "v100", "kepler", "maxwell", "fermi2")
+AUDIT_DEVICES = 100_000
+AUDIT_MODULE = 1_000
+AUDIT_CHUNK = 25_000
+AUDIT_TRIALS = 2
 REPLACES = {
     "stream_ingest":
         "src/repro/core/engine_backend/pallas_backend.py:99",
     "stream_ingest_grid":
         "src/repro/core/engine_backend/pallas_backend.py:276",
+    "log_filter": "src/repro/core/engine_backend/pallas_backend.py:497",
 }
 
 
@@ -178,10 +201,16 @@ def to_card(args, dev):
 
 
 def time_ms(fn, reps):
+    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
+    calls, enqueued behind a ~0.1 s device-side sleep so that the card
+    runs them back to back (a small kernel's wrapper takes longer on the
+    host than the kernel on the card; without the sleep its time would
+    be the host's)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -284,7 +313,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # -- 1. build both kernels, one nvcc each, started together --------------
+    # -- 1. build the kernels, one nvcc each, started together ---------------
     t0 = time.perf_counter()
     secs = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
@@ -297,6 +326,8 @@ def main() -> int:
                     log(f"  {name}: {line.strip()}")
 
     results = run(dev, N_DEVICES, STREAM_S, FLAT_S)
+    torch.cuda.empty_cache()
+    results.append(audit(dev))
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -306,7 +337,7 @@ def main() -> int:
 
 def run(dev, n_devices, stream_s, flat_s):
     """Phases 2-4 on ``dev`` for an ``n_devices`` fleet; returns the
-    kernels' records."""
+    monitor kernels' records."""
     from repro_torch import convert
     from repro_torch.core.ground_truth import TimelineBank
     from repro_torch.core.stream import MonitorService, replay
@@ -557,6 +588,169 @@ def run(dev, n_devices, stream_s, flat_s):
             f"(largest relative energy difference {worst:.3e})")
 
     return list(results.values())
+
+
+# ---------------------------------------------------------------------------
+# the fleet audit
+# ---------------------------------------------------------------------------
+def log_filter_cases(dev):
+    """Small adversarial log_filter inputs on ``dev``: per-device rows of
+    very different lengths (zero-width padding), one shared row for many
+    tick rows, ticks unsorted, on edges, before the first and after the
+    last edge."""
+    from repro_torch.core import load as loads
+    from repro_torch.core.ground_truth import TimelineBank
+    rng = np.random.default_rng(SEED + 11)
+    tls = [loads.square_wave(0.23, 16, 220.0, 90.0),
+           loads.multi_phase_workload([(0.13, 215.0), (0.07, 165.0)]),
+           loads.square_wave(0.05, 2, 250.0, 60.0).shift(1.5),
+           loads.square_wave(0.013, 400, 240.0, 70.0)]
+    cases = []
+    for rows in ([0, 1, 2], [3], [0], [1, 3, 2, 0]):
+        bank = TimelineBank.from_timelines([tls[i] for i in rows],
+                                           device=dev)
+        g = len(rows) if len(rows) > 1 else 257
+        ticks = rng.uniform(-2.0, 8.0, (g, 67))
+        ticks[:, 0] = -40.0
+        ticks[:, 1] = 60.0
+        k = min(3, bank.edges.shape[1])
+        ticks[:, 2:2 + k] = bank.edges[:, :k].cpu().numpy()
+        tau = rng.uniform(0.01, 1.5, g)
+        cases.append((bank.arrays, torch.as_tensor(ticks, device=dev),
+                      torch.as_tensor(tau, device=dev)))
+    return cases
+
+
+def log_filter_err(tl, ticks, tau):
+    """The kernel against its plain version on the same card inputs:
+    1e-12 relative plus 1e-9 W (CUDA's exp and glibc's may differ by an
+    ulp); returns the largest absolute difference."""
+    from repro_torch.engine_backend import torch_backend as tb
+    from repro_torch.kernels.log_filter import log_filter
+    got = log_filter(tl, ticks, tau)
+    want = tb.log_filter(tl, ticks, tau)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), "log_filter: non-finite reading")
+    check(bool((diff <= 1e-12 * want.abs() + 1e-9).all()),
+          f"log_filter off by {float(diff.max()):.3e} at "
+          f"{tuple(ticks.shape)}")
+    return float(diff.max())
+
+
+def audit_fleet():
+    """The audit's 100,000 profile names, kinds interleaved by a seeded
+    permutation so every slab holds every kind."""
+    names = (list(AUDIT_KINDS) * ((AUDIT_DEVICES - AUDIT_MODULE)
+                                  // len(AUDIT_KINDS))
+             + ["gh200_module_instant"] * AUDIT_MODULE)
+    order = np.random.default_rng(SEED).permutation(len(names))
+    return [names[i] for i in order]
+
+
+def audit(dev):
+    """Phase 5; returns the log_filter kernel's record."""
+    from repro_torch.core import fleet_engine as fe
+    from repro_torch.engine_backend import torch_backend as tb
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.log_filter import log_filter
+
+    # -- 5a. small adversarial shapes ------------------------------------------
+    small_err = max(log_filter_err(*c) for c in log_filter_cases(dev))
+    log(f"log_filter vs plain, 4 small adversarial cases: max_abs_err="
+        f"{small_err:.3e}")
+
+    # -- 5b. a small audit on the card against the CPU plain path --------------
+    names96 = (list(AUDIT_KINDS) + ["gh200_module_instant", "rtx3090_530"]) * 12
+    small = [fe.fleet_audit(len(names96), names96, seed=SEED + 2,
+                            good_practice=True, n_trials=AUDIT_TRIALS,
+                            chunk_devices=40, device=d)
+             for d in (dev, torch.device("cpu"))]
+    worst = 0.0
+    for key in ("naive_j", "gp_j"):
+        a = getattr(small[0], key).cpu()
+        b = getattr(small[1], key)
+        check(bool((a - b).abs().le(1e-12 * b.abs() + 1e-9).all()),
+              f"96-device audit: {key} differs card vs CPU")
+        worst = max(worst, float(((a - b).abs() / b.abs()).max()))
+    log(f"96-device audit: card matches the CPU plain path (largest "
+        f"relative difference {worst:.3e})")
+
+    # -- 5c. the main path: fleet_audit over 100,000 devices ------------------
+    names = audit_fleet()
+    captured = {}
+
+    def recording(tl, ticks, tau):
+        if ticks.numel() > captured.get("size", 0):
+            captured.update(size=ticks.numel(), args=(tl, ticks, tau))
+        return log_filter(tl, ticks, tau)
+
+    fe.log_filter = recording
+    try:
+        log_filter.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fe.fleet_audit(AUDIT_DEVICES, names, seed=SEED,
+                             good_practice=True, n_trials=AUDIT_TRIALS,
+                             chunk_devices=AUDIT_CHUNK, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = log_filter.launches
+    finally:
+        fe.log_filter = log_filter
+    check(launches > 0, "the audit ran no log_filter kernel")
+    log(f"fleet_audit: {AUDIT_DEVICES} devices, naive + §5 "
+        f"({AUDIT_TRIALS} trials), {AUDIT_CHUNK}-device slabs, in "
+        f"{secs:.6f} s ({AUDIT_DEVICES / secs:.1f} devices/s), "
+        f"{launches} log_filter launches")
+
+    # -- 5d. what came out ------------------------------------------------------
+    for e in (res.naive_j, res.gp_j, res.naive_err, res.gp_err):
+        check(e.shape == (AUDIT_DEVICES,) and bool(torch.isfinite(e).all()),
+              "audit result malformed")
+    arr = np.asarray(names)
+    for prof in AUDIT_KINDS + ("gh200_module_instant",):
+        sel = torch.as_tensor(arr == prof, device=dev)
+        log(f"  {prof:22s} n={int(sel.sum()):6d} mean |err| naive "
+            f"{float(res.naive_err[sel].abs().mean()):.4%}, good practice "
+            f"{float(res.gp_err[sel].abs().mean()):.4%}")
+    for key, errs in (("naive", res.naive_err), ("good_practice",
+                                                 res.gp_err)):
+        exact = res.stats(errs)
+        streamed = res.streamed[key]["overall"]
+        check(streamed["n_devices"] == AUDIT_DEVICES, f"{key}: moment count")
+        for k in ("mean_err", "mean_abs_err", "std_err", "worst_abs"):
+            check(abs(streamed[k] - exact[k]) <= 1e-9,
+                  f"{key}: streamed {k} {streamed[k]} vs exact {exact[k]}")
+        log(f"  {key}: mean err {exact['mean_err']:+.4%}, mean |err| "
+            f"{exact['mean_abs_err']:.4%}, p99 |err| {exact['p99_abs']:.4%}"
+            f"; streamed moments match the exact ones within 1e-9")
+
+    # -- 5e. the kernel at the audit's largest log_filter shape ---------------
+    tl, ticks, tau = captured["args"]
+    err = log_filter_err(tl, ticks, tau)
+    ms = time_ms(lambda: log_filter(tl, ticks, tau), 20)
+    plain_ms = time_ms(lambda: tb.log_filter(tl, ticks, tau), 3)
+    g, m = ticks.shape
+    r, s1 = tl.edges.shape
+    n_seg = s1 + 1
+    nbytes = 8 * (2 * g * m + g + r * (2 * s1) + 2)
+    ops = (g * m * (LOG_FILTER_OPS_PER_TICK + math.ceil(math.log2(n_seg + 1)))
+           + g * n_seg * LOG_FILTER_OPS_PER_STEP)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP64_OPS_PER_S * 1e3
+    log(f"log_filter at [{g}, {m}] ({r} timeline row(s), {s1 - 1} "
+        f"segments): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms, max_abs_err {err:.3e}")
+    return dict(
+        name="log_filter", route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{_build.SOURCES['log_filter']}",
+        replaces=REPLACES["log_filter"], launches=launches,
+        max_abs_err=max(err, small_err), ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None, shape=[g, m, r, s1 - 1], bytes=nbytes,
+        audit_s=secs, audit_devices_per_s=AUDIT_DEVICES / secs)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ state.  The functions here take them as numpy arrays — as the reference
 package (:mod:`repro`) holds them — and build the port's tensors on a
 device, or turn the port's back into numpy so that the two packages can
 be compared like with like.  Field names follow the reference:
-``SensorBank.true_gain/true_offset/true_phase``, the
+``SensorBank.true_gain/true_offset/true_phase/_model_gain``, the
 ``StreamCorrections`` fields, and the ``state.*`` / ``ring.*`` /
 ``periods.*`` / ``moments.*`` keys of the reference's checkpoint layout
 (``repro.core.stream.schema.pack_monitor``).
@@ -14,7 +14,7 @@ be compared like with like.  Field names follow the reference:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,17 +36,28 @@ def _numpy(x: torch.Tensor) -> np.ndarray:
 
 def sensor_bank(profile_names: Sequence[str], true_gain: np.ndarray,
                 true_offset: np.ndarray, true_phase: np.ndarray, *,
-                seed: int = 0, device: DeviceLike = "cuda") -> SensorBank:
+                model_gain: Optional[np.ndarray] = None, seed: int = 0,
+                device: DeviceLike = "cuda") -> SensorBank:
     """A port :class:`SensorBank` over catalog ``profile_names`` whose
-    hidden gain, offset and phase are the reference bank's
-    (``true_gain``/``true_offset``/``true_phase``, [N] each).  ``seed``
-    still drives the reading noise."""
+    hidden gain, offset, phase and (estimation rows') model gain are the
+    reference bank's (``true_gain``/``true_offset``/``true_phase``/
+    ``_model_gain``, [N] each; the port's own draw of the model gain when
+    ``model_gain`` is None).  ``seed`` still drives the reading noise."""
     bank = SensorBank.from_catalog(list(profile_names), seed=seed,
                                    device=device)
-    bank._set_hidden(torch.as_tensor(np.asarray(true_gain)),
-                     torch.as_tensor(np.asarray(true_offset)),
-                     torch.as_tensor(np.asarray(true_phase)))
+    bank._set_hidden(*(None if x is None else torch.as_tensor(np.asarray(x))
+                       for x in (true_gain, true_offset, true_phase,
+                                 model_gain)))
     return bank
+
+
+def bank_to_numpy(bank: SensorBank) -> Dict[str, np.ndarray]:
+    """A port bank's hidden parameters as numpy copies, under the names
+    :func:`sensor_bank` takes them."""
+    return {"true_gain": _numpy(bank.true_gain),
+            "true_offset": _numpy(bank.true_offset),
+            "true_phase": _numpy(bank.true_phase),
+            "model_gain": _numpy(bank._model_gain)}
 
 
 def stream_corrections(fields: Mapping[str, np.ndarray], *,

@@ -1,23 +1,31 @@
-"""Batched fleet sensor simulation and mergeable moments.
+"""Batched fleet sensor simulation, the Monte-Carlo fleet audit and
+mergeable moments.
 
-The counterpart of the parts of :mod:`repro.core.fleet_engine` the live
-monitor needs:
+The counterpart of :mod:`repro.core.fleet_engine`:
 
 * :class:`SensorBank` — N on-board sensors as stacked tensors on one
-  device, restricted to the boxcar transient: the A100/H100 class whose
-  25 ms window per 100 ms period is the paper's headline finding.  It
-  attaches to a shared timeline (optionally shifted per device) or a
+  device, every transient of the paper's Fig. 14: the boxcar window
+  (A100/H100 25 ms of every 100 ms, Volta/Pascal 10 of 20 ms), the
+  Kepler/Maxwell capacitor-charging filter (the CUDA ``log_filter``
+  kernel) and the Fermi model estimate.  It attaches to a shared timeline
+  (optionally shifted per device) or a
   :class:`~repro_torch.core.ground_truth.TimelineBank`, answers
-  ``query``, and emits poll slabs for the monitor (``iter_poll_slabs``).
-  Hidden gain, offset and phase and the reading noise come from explicit
-  :class:`torch.Generator`\\ s seeded by ``seed``; they are not the
-  reference's per-device PCG64 streams, so to compare against the
-  reference, carry its hidden parameters across with
-  :func:`repro_torch.convert.sensor_bank`.
+  ``query``, emits poll slabs for the monitor (``iter_poll_slabs``) and
+  integrates polled series in closed form (``integrate_polled``).
+* :func:`fleet_audit` — the naive and §5 protocols over a whole fleet,
+  chunked into device slabs, with the error distribution and its
+  streamed moments (:class:`FleetAuditResult`).
 * :class:`StreamingMoments` — the Chan-merge moment accumulator.
+
+Random draws come from explicit :class:`torch.Generator`\\ s on the CPU,
+moved to the bank's device, so a bank gives the same readings on the
+card and on the CPU.  They are not the reference's per-device PCG64
+streams: to compare against the reference, carry its hidden parameters
+across with :func:`repro_torch.convert.sensor_bank`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Union
 
 import math
@@ -26,19 +34,29 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import profiles as _profiles
+from repro_torch.core.calibrate import nominal_record
 from repro_torch.core.ground_truth import ActivityTimeline, TimelineBank
+from repro_torch.core.load import multi_phase_workload
+from repro_torch.core.meter import (GoodPracticeConfig, Workload,
+                                    as_workload_set,
+                                    measure_good_practice_batch,
+                                    measure_naive_batch)
 from repro_torch.core.sensor import SensorProfile, SensorUnsupported
+from repro_torch.core.telemetry import SHUNT_TOLERANCE
 from repro_torch.engine_backend import torch_backend as _tb
-from repro_torch.engine_backend.pytrees import ReadingSchedule
+from repro_torch.engine_backend.pytrees import PollGrid, ReadingSchedule
+from repro_torch.kernels.log_filter import log_filter
 
 F64 = torch.float64
+_TRANSIENTS = ("boxcar", "logarithmic", "estimation")
 
 
 def auto_chunk_devices(n_devices: int, per_device_elems: int,
-                       budget_elems: int = 4_000_000) -> int:
-    """Device-slab size keeping one slab near ``budget_elems`` samples
-    (the reference's rule for poll slabs): at least 1, at most
-    ``n_devices`` when positive."""
+                       budget_elems: int = 16_000_000) -> int:
+    """Device-slab size keeping one slab's intermediates near
+    ``budget_elems`` elements (the reference's rule; ``iter_poll_slabs``
+    passes a 4M budget): at least 1, at most ``n_devices`` when
+    positive."""
     per = max(int(per_device_elems), 1)
     chunk = max(1, int(budget_elems) // per)
     if n_devices > 0:
@@ -46,19 +64,47 @@ def auto_chunk_devices(n_devices: int, per_device_elems: int,
     return chunk
 
 
+def _as_tensor(x, n: int, device: torch.device) -> torch.Tensor:
+    """A scalar or [n] value as an [n] float64 tensor on ``device``."""
+    t = torch.as_tensor(x, dtype=F64, device=device)
+    if t.ndim == 0:
+        return t.expand(n)
+    if t.shape != (n,):
+        raise ValueError(f"expected scalar or shape ({n},), got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
 class SensorBank:
-    """N boxcar sensors as stacked tensors on ``device``.
+    """N heterogeneous sensors as stacked tensors on ``device``.
 
     Usage::
 
-        bank = SensorBank.from_catalog(["a100"] * 5000, seed=0)
+        bank = SensorBank.from_catalog(["a100"] * 5000 + ["kepler"] * 5000)
         bank.attach(timeline, shifts=offsets)
-        for dev, ts, vals in bank.iter_poll_slabs(0.0, 10.0, grid=True):
-            monitor.ingest_grid(dev, ts, vals)
+        joules = bank.integrate_polled(0.0, 10.0, 0.001, a, b)
+
+    Profile fields, hidden gain, offset, phase and (for estimation rows)
+    model gain are per-device tensors on ``device``; the transient kind,
+    scope and support are host arrays.  The hidden parameters are drawn
+    once, on the CPU, from a :class:`torch.Generator` seeded by ``seed``;
+    :meth:`subset` slices them, never re-draws them.
     """
 
+    _ROW_FIELDS = ("update_period_s", "window_s", "tau_s", "quantum_w",
+                   "noise_w", "sampled_fraction", "transient",
+                   "module_scope", "supported", "_rows", "_gain",
+                   "_offset", "_phase", "_model_gain")
+
     def __init__(self, profile_list: Sequence[SensorProfile], *,
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0,
+                 host_timeline: Optional[ActivityTimeline] = None,
+                 device: DeviceLike = "cuda"):
+        if host_timeline is not None:
+            raise NotImplementedError(
+                "host_timeline (the host draw a module-scope sensor adds "
+                "to its readings) is not ported yet: it comes with the "
+                "scalar §5 slice (ROADMAP.md, queue A)")
         self.device = resolve_device(device)
         self.profiles: List[SensorProfile] = list(profile_list)
         n = len(self.profiles)
@@ -71,37 +117,46 @@ class SensorBank:
         for p, c in zip(self.profiles, codes):
             by_code[c] = p
         for p in by_code:
-            if p.transient == "boxcar":
-                continue
-            if p.transient in ("logarithmic", "estimation"):
-                raise NotImplementedError(
-                    f"profile '{p.name}' has a {p.transient} transient; the "
-                    "port's SensorBank takes boxcar sensors only so far "
-                    "(the log_filter kernel and the estimation transient "
-                    "come with the fleet-audit slice)")
-            raise ValueError(f"unknown transient '{p.transient}'")
+            if p.transient not in _TRANSIENTS:
+                raise ValueError(f"unknown transient '{p.transient}'")
         code_t = torch.tensor(codes, dtype=torch.int64)
+        code_np = np.asarray(codes)
 
-        def field(fn) -> torch.Tensor:
-            table = torch.tensor([float(fn(p)) for p in by_code], dtype=F64)
-            return table[code_t].to(self.device)
+        def table(fn) -> torch.Tensor:
+            """A per-device CPU tensor from a per-profile field."""
+            return torch.tensor([float(fn(p)) for p in by_code],
+                                dtype=F64)[code_t]
 
-        self.update_period_s = field(lambda p: p.update_period_s)
-        self.window_s = field(lambda p: p.window_s if p.window_s is not None
-                              else p.update_period_s)
-        self.quantum_w = field(lambda p: p.quantum_w)
-        self.noise_w = field(lambda p: p.noise_w)
-        self.supported = np.array([p.supported for p in self.profiles])
+        def host(fn, dtype) -> np.ndarray:
+            return np.array([fn(p) for p in by_code], dtype=dtype)[code_np]
 
-        # hidden per-device truth, from an explicit generator
-        gain_tol = field(lambda p: p.gain_tol)
-        off_tol = field(lambda p: p.offset_tol_w)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed)
-        u = torch.rand((3, n), generator=gen, dtype=F64, device=self.device)
-        self._gain = 1.0 + (2.0 * u[0] - 1.0) * gain_tol
-        self._offset = (2.0 * u[1] - 1.0) * off_tol
-        self._phase = u[2] * self.update_period_s
+        period = table(lambda p: p.update_period_s)
+        self.update_period_s = period.to(self.device)
+        self.window_s = table(lambda p: p.window_s if p.window_s is not None
+                              else p.update_period_s).to(self.device)
+        self.tau_s = table(lambda p: p.tau_s).to(self.device)
+        self.quantum_w = table(lambda p: p.quantum_w).to(self.device)
+        self.noise_w = table(lambda p: p.noise_w).to(self.device)
+        self.sampled_fraction = table(
+            lambda p: p.sampled_fraction).to(self.device)
+        self.transient = host(lambda p: p.transient, object)
+        self.module_scope = host(lambda p: p.scope == "module", bool)
+        self.supported = host(lambda p: p.supported, bool)
+        self._rows = np.arange(n)
+
+        # hidden per-device truth, drawn on the CPU
+        gen = torch.Generator().manual_seed(self.seed)
+        u = torch.rand((3, n), generator=gen, dtype=F64)
+        u_model = torch.rand(n, generator=gen, dtype=F64)
+        est = torch.as_tensor(self.transient == "estimation")
+        hidden = (
+            1.0 + (2.0 * u[0] - 1.0) * table(lambda p: p.gain_tol),
+            (2.0 * u[1] - 1.0) * table(lambda p: p.offset_tol_w),
+            u[2] * period,
+            torch.where(est, 1.0 + (2.0 * u_model - 1.0)
+                        * table(lambda p: p.model_error), 1.0))
+        self._gain, self._offset, self._phase, self._model_gain = (
+            x.to(self.device) for x in hidden)
 
         self._ticks: Optional[torch.Tensor] = None    # [N, M] padded
         self._values: Optional[torch.Tensor] = None   # [N, M] padded
@@ -112,6 +167,7 @@ class SensorBank:
     @classmethod
     def from_catalog(cls, names: Union[str, Sequence[str]],
                      n: Optional[int] = None, *, seed: int = 0,
+                     host_timeline: Optional[ActivityTimeline] = None,
                      device: DeviceLike = "cuda") -> "SensorBank":
         """Build a bank from catalog names: one name with ``n`` copies, or
         an explicit per-device list."""
@@ -120,7 +176,7 @@ class SensorBank:
         elif n is not None and len(names) != n:
             raise ValueError(f"len(names)={len(names)} != n={n}")
         return cls([_profiles.get(name) for name in names], seed=seed,
-                   device=device)
+                   host_timeline=host_timeline, device=device)
 
     @property
     def n_devices(self) -> int:
@@ -139,21 +195,39 @@ class SensorBank:
         return self._phase
 
     def _set_hidden(self, gain: torch.Tensor, offset: torch.Tensor,
-                    phase: torch.Tensor) -> None:
+                    phase: torch.Tensor,
+                    model_gain: Optional[torch.Tensor] = None) -> None:
         """Replace the hidden parameters (see :mod:`repro_torch.convert`)
         and drop any attached schedule."""
         n = self.n_devices
         vals = []
-        for name, x in (("gain", gain), ("offset", offset),
-                        ("phase", phase)):
+        named = (("gain", gain), ("offset", offset), ("phase", phase),
+                 ("model_gain", self._model_gain if model_gain is None
+                  else model_gain))
+        for name, x in named:
             x = torch.as_tensor(x, dtype=F64, device=self.device)
             if x.shape != (n,):
                 raise ValueError(f"hidden {name} must be [{n}], "
                                  f"got {tuple(x.shape)}")
             vals.append(x.clone())
-        self._gain, self._offset, self._phase = vals
+        self._gain, self._offset, self._phase, self._model_gain = vals
         self._ticks = self._values = None
         self._first = self._last = self._k0 = None
+
+    def subset(self, idx) -> "SensorBank":
+        """A bank over devices ``idx`` of this one: every per-device field
+        and hidden parameter is sliced, not re-drawn."""
+        idx = np.asarray(torch.as_tensor(idx).cpu(), dtype=np.int64)
+        ti = torch.as_tensor(idx, device=self.device)
+        nb = object.__new__(SensorBank)
+        nb.device = self.device
+        nb.seed = self.seed
+        nb.profiles = [self.profiles[i] for i in idx]
+        for f in self._ROW_FIELDS:
+            x = getattr(self, f)
+            setattr(nb, f, x[ti] if isinstance(x, torch.Tensor) else x[idx])
+        nb._ticks = nb._values = nb._first = nb._last = nb._k0 = None
+        return nb
 
     # -- simulation -------------------------------------------------------
     def attach(self, timeline: Union[ActivityTimeline, TimelineBank],
@@ -164,7 +238,12 @@ class SensorBank:
 
         ``timeline`` is one shared :class:`ActivityTimeline` (device
         ``i`` sees it shifted by ``shifts[i]``) or a :class:`TimelineBank`
-        with one row per device.  ``t_end`` may be per-device.
+        with one row per device.  ``t_end`` may be per-device.  Each
+        transient kind runs over its own rows: boxcar means over the
+        trailing window, the estimation transient's period mean times the
+        model gain, and the logarithmic filter through the ``log_filter``
+        kernel with per-row ``tau_s`` (a shared timeline goes in as one
+        row).
         """
         n = self.n_devices
         dev = self.device
@@ -210,21 +289,53 @@ class SensorBank:
             raise ValueError("a device published no readings in the window")
         last = first + count - 1
 
-        t_eval = ticks - s[:, None]
-        raw = _tb.boxcar_means(bank.arrays, t_eval - self.window_s[:, None],
-                               t_eval)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(self.seed + 1)
-        noise = torch.randn(ticks.shape, generator=gen, dtype=F64,
-                            device=dev) * self.noise_w[:, None]
+        raw = torch.zeros_like(ticks)
+        for kind in _TRANSIENTS:
+            rows = np.nonzero(self.transient == kind)[0]
+            if len(rows) == 0:
+                continue
+            rr = torch.as_tensor(rows, device=dev)
+            tl = (bank if bank.n_rows == 1 else bank.rows(rr)).arrays
+            t_eval = ticks[rr] - s[rr, None]
+            if kind == "boxcar":
+                raw[rr] = _tb.boxcar_means(
+                    tl, t_eval - self.window_s[rr, None], t_eval)
+            elif kind == "estimation":
+                raw[rr] = _tb.estimation_means(
+                    tl, t_eval - T[rr, None], t_eval, self._model_gain[rr])
+            else:
+                raw[rr] = log_filter(tl, t_eval, self.tau_s[rr])
+
         q = self.quantum_w[:, None]
         vals = self._gain[:, None] * raw + self._offset[:, None]
-        vals = vals + noise
+        vals = vals + self._noise(m, first, count)
         vals = torch.clamp_min(torch.round(vals / q) * q, 0.0)
         vals = torch.where(valid, vals, 0.0)
 
         self._ticks, self._values = ticks, vals
         self._first, self._last, self._k0 = first, last, k0
+
+    def _noise(self, m: int, first: torch.Tensor,
+               count: torch.Tensor) -> torch.Tensor:
+        """Reading jitter [N, m], aligned to each device's valid slots as
+        the reference's is (slot ``first_i + c`` gets row ``i``'s draw
+        ``c``; zero outside).
+
+        Drawn on the CPU from a :class:`torch.Generator` seeded by the
+        bank's seed and the fleet index of its first device, so a bank
+        draws the same on every device and two slabs of one fleet draw
+        from different streams; the draws follow from which rows a bank
+        holds, so a chunked audit's noise differs from the unchunked
+        one's (its hidden parameters do not)."""
+        seq = np.random.SeedSequence([self.seed, int(self._rows[0])])
+        gen = torch.Generator().manual_seed(
+            int(seq.generate_state(1, np.uint64)[0]))
+        z = torch.randn((self.n_devices, m), generator=gen,
+                        dtype=F64).to(self.device)
+        src = torch.arange(m, device=self.device)[None, :] - first[:, None]
+        valid = (src >= 0) & (src < count[:, None])
+        z = torch.gather(z, 1, torch.clamp(src, 0, m - 1))
+        return torch.where(valid, z * self.noise_w[:, None], 0.0)
 
     # -- query API --------------------------------------------------------
     @property
@@ -271,7 +382,8 @@ class SensorBank:
         n_polls = int(math.floor((t1 - t0) / period_s))
         per_tick = max(1, int(round(tick_s / period_s)))
         if chunk_devices is None:
-            chunk_devices = auto_chunk_devices(self.n_devices, per_tick)
+            chunk_devices = auto_chunk_devices(self.n_devices, per_tick,
+                                               budget_elems=4_000_000)
         dev = self.device
         for j_lo in range(0, n_polls, per_tick):
             j_hi = min(j_lo + per_tick, n_polls)
@@ -289,6 +401,40 @@ class SensorBank:
                 else:
                     yield (torch.repeat_interleave(ids, m),
                            ts.repeat(hi - lo), vals.reshape(-1))
+
+    def integrate_polled(self, poll_t0: float,
+                         poll_t1: Union[float, torch.Tensor],
+                         period_s: float,
+                         a: Union[float, torch.Tensor],
+                         b: Union[float, torch.Tensor],
+                         transform=None,
+                         grid_offset: Union[float, torch.Tensor] = 0.0
+                         ) -> torch.Tensor:
+        """Step-integrate each device's polled series over ``[a_i, b_i]``
+        [N], without building the [N, n_poll] reading matrix: the poll
+        grid from ``poll_t0`` to ``poll_t1`` (per device or shared) at
+        ``period_s`` is uniform and the readings are a step function of
+        the tick grid, so ``poll_counts`` counts the polls each reading
+        covers and the integral is ``period · Σ_k v_k · count_k`` plus the
+        final partial step.  ``transform`` maps the [N, M] readings (a
+        baseline or calibration correction) first; ``grid_offset`` (per
+        device or shared) shifts the reported poll timestamps, the §5
+        re-synchronisation."""
+        sched = self._schedule
+        n = self.n_devices
+        dev = self.device
+        a = _as_tensor(a, n, dev)
+        b = _as_tensor(b, n, dev)
+        grid = PollGrid(float(poll_t0), _as_tensor(poll_t1, n, dev),
+                        float(period_s), _as_tensor(grid_offset, n, dev))
+        counts, slot_b, tail_dt, nonempty = _tb.poll_counts(sched, grid,
+                                                            a, b)
+        vals = self._values if transform is None else transform(self._values)
+        total = (vals * counts).sum(dim=1) * period_s
+        # the final poll instant integrates over the partial step
+        vb = torch.gather(vals, 1, slot_b[:, None])[:, 0]
+        total = total + torch.where(nonempty, vb * tail_dt, 0.0)
+        return torch.where(nonempty, total, 0.0)
 
 
 class StreamingMoments:
@@ -333,3 +479,192 @@ class StreamingMoments:
             "worst_abs": float(self.max_abs),
             "n_devices": int(self.n),
         }
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo fleet audit
+# ---------------------------------------------------------------------------
+
+def _err_stats(e: torch.Tensor) -> Dict[str, float]:
+    """Mean, mean |e|, population std, the 50/90/99th percentiles of |e|
+    (linear interpolation, as ``np.percentile``) and the worst |e|."""
+    ae = e.abs()
+    q = torch.quantile(ae, torch.tensor([0.50, 0.90, 0.99], dtype=F64,
+                                        device=e.device))
+    vals = torch.stack([e.mean(), ae.mean(), e.std(correction=0), q[0], q[1],
+                        q[2], ae.max()]).tolist()
+    return dict(zip(("mean_err", "mean_abs_err", "std_err", "p50_abs",
+                     "p90_abs", "p99_abs", "worst_abs"), vals))
+
+
+@dataclasses.dataclass
+class FleetAuditResult:
+    """Per-device error distribution of a fleet-wide energy audit.
+
+    ``true_j`` is one shared per-repetition truth or an [N] tensor (one
+    workload per device); the per-device estimates and errors are [N]
+    tensors on the audit's device; ``scenarios`` labels each device's
+    workload class (host array) for :meth:`by_scenario`; ``streamed`` holds
+    the moments merged slab by slab.
+    """
+
+    n_devices: int
+    profile_names: List[str]
+    true_j: Union[float, torch.Tensor]
+    naive_j: torch.Tensor
+    naive_err: torch.Tensor
+    gp_j: Optional[torch.Tensor] = None
+    gp_err: Optional[torch.Tensor] = None
+    scenarios: Optional[np.ndarray] = None
+    chunk_devices: Optional[int] = None
+    streamed: Optional[Dict[str, Dict]] = None
+
+    def stats(self, errs: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        return _err_stats(self.naive_err if errs is None else errs)
+
+    def by_scenario(self, errs: Optional[torch.Tensor] = None
+                    ) -> Dict[str, Dict[str, float]]:
+        """Error stats split by workload scenario label."""
+        if self.scenarios is None:
+            st = self.stats(errs)
+            st["n_devices"] = int(self.n_devices)
+            return {"all": st}
+        e = self.naive_err if errs is None else errs
+        out: Dict[str, Dict[str, float]] = {}
+        for label in np.unique(self.scenarios):
+            sel = e[torch.as_tensor(self.scenarios == label,
+                                    device=e.device)]
+            st = _err_stats(sel)
+            st["n_devices"] = int(sel.shape[0])
+            out[str(label)] = st
+        return out
+
+    def uncertainty(self) -> Dict[str, float]:
+        """1/√N (independent) vs worst-case (correlated lot) fleet bounds."""
+        est = self.gp_j if self.gp_j is not None else self.naive_j
+        sigma = SHUNT_TOLERANCE * est
+        total, ind, worst = torch.stack([
+            est.sum(), (sigma ** 2).sum().sqrt(), sigma.sum()]).tolist()
+        return {
+            "total_j": total,
+            "sigma_independent_j": ind,
+            "sigma_worstcase_j": worst,
+            "sigma_independent_rel": ind / max(total, 1e-12),
+            "sigma_worstcase_rel": worst / max(total, 1e-12),
+        }
+
+
+def _fleet_bank(names: Sequence[str], seed: int,
+                device: torch.device) -> SensorBank:
+    """The audit's whole fleet, hidden parameters drawn once for all N
+    devices, so a chunked audit gives each slab the unchunked rows."""
+    return SensorBank.from_catalog(list(names), seed=seed, device=device)
+
+
+def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
+                workload=None, seed: int = 0, good_practice: bool = False,
+                n_trials: int = 2, *, chunk_devices: Optional[int] = None,
+                mesh=None, device: DeviceLike = "cuda") -> FleetAuditResult:
+    """Monte-Carlo audit: N devices, each with hidden gain, offset, phase
+    (and model gain), measured naively and optionally with the §5
+    protocol; returns the per-device error distribution.
+
+    ``profile`` is one catalog name or N of them; ``workload`` one shared
+    :class:`~repro_torch.core.meter.Workload` (default: the 200 ms
+    two-phase ``audit_burst``), N workloads or a
+    :class:`~repro_torch.core.meter.WorkloadSet`.  ``chunk_devices``
+    streams the audit over device slabs of that size; each slab takes its
+    rows of the fleet's hidden parameters (drawn once) and its devices'
+    §5 start offsets (which follow from the device index), so with
+    noise-free sensors a chunked audit matches the unchunked one per
+    device, up to the order of float sums.  The reading noise is drawn
+    per slab (see :meth:`SensorBank._noise`).  Error moments merge
+    across slabs by :class:`StreamingMoments` (``result.streamed``);
+    ``result.stats()`` gives the exact ones.  A fleet with any
+    module-scope sensor (GH200 ``instant``) is measured with a zero host
+    baseline, debited from module rows only.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the audit sharded over several cards) is not ported "
+            "yet: it comes with the sharded-audit slice on "
+            "torch.distributed (ROADMAP.md, queue A)")
+    dev = resolve_device(device)
+    if workload is None:
+        workload = Workload("audit_burst", multi_phase_workload(
+            [(0.130, 215.0), (0.070, 165.0)]))
+    names = ([profile] * n_devices if isinstance(profile, str)
+             else list(profile))
+    if len(names) != n_devices:
+        raise ValueError(f"{len(names)} profile names for {n_devices} devices")
+    ws_full = as_workload_set(workload, n_devices, dev)
+    shared = ws_full is None
+
+    if chunk_devices is None:
+        slabs = [(0, n_devices)]
+    else:
+        if chunk_devices < 1:
+            raise ValueError(f"chunk_devices must be >= 1, "
+                             f"got {chunk_devices}")
+        slabs = [(lo, min(lo + chunk_devices, n_devices))
+                 for lo in range(0, n_devices, chunk_devices)]
+    calibs = ({name: nominal_record("fleet", _profiles.get(name))
+               for name in set(names)} if good_practice else {})
+
+    fleet = _fleet_bank(names, seed, dev)
+    naive_j = torch.empty(n_devices, dtype=F64, device=dev)
+    naive_err = torch.empty_like(naive_j)
+    truth_v = None if shared else torch.empty_like(naive_j)
+    scenarios = None if shared else np.empty(n_devices, dtype=object)
+    gp_j = torch.empty_like(naive_j) if good_practice else None
+    gp_err = torch.empty_like(naive_j) if good_practice else None
+    sm: Dict[str, Dict] = {
+        "naive": {"overall": StreamingMoments(), "by_scenario": {}}}
+    if good_practice:
+        sm["good_practice"] = {"overall": StreamingMoments(),
+                               "by_scenario": {}}
+
+    def _stream(key: str, err: torch.Tensor, labels) -> None:
+        sm[key]["overall"].update(err)
+        if labels is None:
+            return
+        for label in np.unique(labels):
+            sm[key]["by_scenario"].setdefault(
+                str(label), StreamingMoments()).update(
+                    err[torch.as_tensor(labels == label, device=dev)])
+
+    for lo, hi in slabs:
+        bank = fleet if len(slabs) == 1 else fleet.subset(np.arange(lo, hi))
+        ws = (None if shared
+              else ws_full if len(slabs) == 1 else ws_full.rows(lo, hi))
+        wl = workload if ws is None else ws
+        baseline = 0.0 if bank.module_scope.any() else None
+        naive = measure_naive_batch(bank, wl, host_baseline_w=baseline)
+        tr = workload.true_energy_j if ws is None else ws.true_energies_j
+        err = (naive - tr) / tr
+        labels = None if ws is None else ws.scenarios
+        naive_j[lo:hi] = naive
+        naive_err[lo:hi] = err
+        if truth_v is not None:
+            truth_v[lo:hi] = tr
+            scenarios[lo:hi] = labels
+        _stream("naive", err, labels)
+
+        if good_practice:
+            est = measure_good_practice_batch(
+                bank, wl, calibs, GoodPracticeConfig(n_trials=n_trials),
+                host_baseline_w=baseline, seeds=np.arange(lo, hi))
+            ge = (est.joules_per_rep - tr) / tr
+            gp_j[lo:hi] = est.joules_per_rep
+            gp_err[lo:hi] = ge
+            _stream("good_practice", ge, labels)
+
+    streamed = {key: {"overall": v["overall"].stats(),
+                      "by_scenario": {k: s.stats() for k, s in
+                                      sorted(v["by_scenario"].items())}}
+                for key, v in sm.items()}
+    return FleetAuditResult(
+        n_devices=n_devices, profile_names=names,
+        true_j=(workload.true_energy_j if shared else truth_v),
+        naive_j=naive_j, naive_err=naive_err, gp_j=gp_j, gp_err=gp_err,
+        scenarios=scenarios, chunk_devices=chunk_devices, streamed=streamed)

@@ -2,14 +2,14 @@
 
 The counterparts of :class:`repro.core.ground_truth.ActivityTimeline`,
 ``from_segments`` and the parts of ``TimelineBank`` the monitor's source
-needs.  An :class:`ActivityTimeline` is a small description (float64
+and the fleet audit need.  An :class:`ActivityTimeline` is a small description (float64
 tensors on the CPU); a :class:`TimelineBank` holds ``N`` padded traces
 on a device and answers exact integrals there.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,8 +46,50 @@ class ActivityTimeline:
     def t_end(self) -> float:
         return float(self.edges[-1])
 
+    @property
+    def t_start(self) -> float:
+        return float(self.edges[0])
+
+    def energy(self) -> float:
+        """Analytic ground-truth energy in joules over the covered
+        range."""
+        arrays = TimelineArrays(self.edges[None, :], self.powers[None, :],
+                                torch.tensor([self.idle_w], dtype=F64),
+                                torch.tensor([len(self.powers)]))
+        return float(timeline_integral(
+            arrays, self.edges[None, :1], self.edges[None, -1:])[0, 0])
+
     def shift(self, dt: float) -> "ActivityTimeline":
         return ActivityTimeline(self.edges + dt, self.powers, self.idle_w)
+
+    @staticmethod
+    def concat(parts: Sequence["ActivityTimeline"],
+               gap_s: float = 0.0) -> "ActivityTimeline":
+        """Concatenate fragments back-to-back (each re-based to follow the
+        previous one), inserting ``gap_s`` of the first part's idle power
+        between them; the reference's cursor arithmetic, step for
+        step."""
+        if not parts:
+            raise ValueError("no parts")
+        idle = parts[0].idle_w
+        edges: List[float] = []
+        powers: List[float] = []
+        cursor = parts[0].t_start
+        for i, p in enumerate(parts):
+            dur = p.t_end - p.t_start
+            if i > 0 and gap_s > 0:
+                edges.append(cursor)
+                powers.append(idle)
+                cursor += gap_s
+            edges.extend((p.edges + (cursor - p.t_start))[:-1].tolist())
+            powers.extend(p.powers.tolist())
+            cursor += dur
+        edges.append(cursor)
+        return ActivityTimeline(torch.tensor(edges, dtype=F64),
+                                torch.tensor(powers, dtype=F64), idle)
+
+    def repeat(self, n: int) -> "ActivityTimeline":
+        return ActivityTimeline.concat([self] * n)
 
 
 def from_segments(segments: Iterable[Tuple[float, float]],
@@ -170,8 +212,16 @@ class TimelineBank:
                               self.n_segs)
 
     @property
+    def t_start(self) -> torch.Tensor:
+        return self.edges[:, 0]
+
+    @property
     def t_end(self) -> torch.Tensor:
         return self.edges[:, -1]
+
+    @property
+    def duration_s(self) -> torch.Tensor:
+        return self.t_end - self.t_start
 
     def shift(self, dt) -> "TimelineBank":
         """Shift every row by ``dt`` (scalar) or row ``i`` by ``dt[i]``."""
@@ -213,3 +263,8 @@ class TimelineBank:
             raise ValueError(f"{tq0.shape[0]} query rows for "
                              f"{self.n_rows} bank rows")
         return timeline_integral(self.arrays, tq0, tq1).reshape(out_shape)
+
+    def energy(self) -> torch.Tensor:
+        """Analytic per-row ground-truth energy [N] in joules over each
+        row's covered range."""
+        return self.integral(self.t_start, self.t_end)

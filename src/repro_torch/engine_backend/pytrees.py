@@ -53,3 +53,19 @@ class ReadingSchedule(NamedTuple):
     k0: torch.Tensor
     phase: torch.Tensor
     update_period_s: torch.Tensor
+
+
+class PollGrid(NamedTuple):
+    """A uniform ``nvidia-smi -lms``-style poll grid shared by a fleet.
+
+    ``t0`` and ``period_s`` are Python floats; ``t1`` [N] ends each
+    device's grid (device ``i`` owns poll indices ``0 .. floor((t1[i] -
+    t0) / period_s) - 1``), and ``grid_offset`` [N] shifts the reported
+    timestamps (the §5 re-synchronisation) while queries still happen at
+    the true instant.
+    """
+
+    t0: float
+    t1: torch.Tensor
+    period_s: float
+    grid_offset: torch.Tensor

@@ -5,13 +5,14 @@ The counterparts of :mod:`repro.core.engine_backend.numpy_backend`
 device.  They serve three roles:
 
 * the query-side and source-side ops (``searchsorted_rows``,
-  ``timeline_integral``, ``boxcar_means``, ``query_slots``,
-  ``snapshot_energy_at``, ``err_moments``) run as they are, on the card
-  or the CPU: the JAX package had no TPU kernel for them either;
-* ``stream_ingest`` and ``stream_ingest_grid`` are the plain versions of
-  the two CUDA kernels in :mod:`repro_torch.kernels`: the kernel
-  wrappers run them for CPU tensors, and ``chip_smoke.py`` holds each
-  kernel against them on the card.
+  ``timeline_integral``, ``boxcar_means``, ``estimation_means``,
+  ``query_slots``, ``poll_counts``, ``snapshot_energy_at``,
+  ``err_moments``) run as they are, on the card or the CPU: the JAX
+  package had no TPU kernel for them either;
+* ``stream_ingest``, ``stream_ingest_grid`` and ``log_filter`` are the
+  plain versions of the CUDA kernels in :mod:`repro_torch.kernels`: the
+  kernel wrappers run them for CPU tensors, and ``chip_smoke.py`` holds
+  each kernel against them on the card.
 
 ``np.bincount`` becomes ``index_add_``, ``np.maximum.accumulate``
 becomes ``torch.cummax`` and ``take_along_axis`` becomes ``gather``.
@@ -24,10 +25,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.engine_backend.pytrees import ReadingSchedule, TimelineArrays
+from repro_torch.engine_backend.pytrees import (PollGrid, ReadingSchedule,
+                                                TimelineArrays)
 
 F64 = torch.float64
 I64 = torch.int64
+
+_FAR = torch.iinfo(I64).max // 2
 
 
 def searchsorted_rows(a: torch.Tensor, v: torch.Tensor,
@@ -97,6 +101,64 @@ def boxcar_means(tl: TimelineArrays, t0: torch.Tensor,
     return timeline_integral(tl, t0, t1) / dt
 
 
+def estimation_means(tl: TimelineArrays, t0: torch.Tensor, t1: torch.Tensor,
+                     model_gain: torch.Tensor) -> torch.Tensor:
+    """Activity-proxy transient: the true period mean seen through a crude
+    per-device activity model (``model_gain`` [G])."""
+    return boxcar_means(tl, t0, t1) * model_gain[:, None]
+
+
+def log_filter_span(tl: TimelineArrays, ticks: torch.Tensor,
+                    tau: torch.Tensor) -> torch.Tensor:
+    """``[t_lo, t_hi]``, the edges :func:`log_filter` pads every row with:
+    the reference's numbers, kept on the inputs' device (no host sync).
+    The state before the first real edge is exactly ``idle_w`` whatever
+    the padding, so only the ticks' segment lookup depends on them."""
+    lo, hi = torch.aminmax(ticks)
+    t_lo = torch.minimum(lo, tl.edges[:, 0].min()) - 5.0 * tau.max()
+    t_hi = torch.maximum(hi, tl.edges[:, -1].max()) + 1e-9
+    return torch.stack([t_lo, t_hi])
+
+
+def log_filter(tl: TimelineArrays, ticks: torch.Tensor,
+               tau: torch.Tensor) -> torch.Tensor:
+    """Batched first-order filter y' = (P - y)/tau for G devices at
+    ``ticks`` [G, M]: the plain version of the CUDA ``log_filter`` kernel.
+
+    ``tl`` has G rows or one shared row.  Each row's state walks its
+    padded segments in order (``sp + (y - sp)·exp(-dt/tau)``, carried
+    unchanged over zero-width padding), then each tick decays from the
+    state at the start of its segment.  The reference's formula, step
+    order and ``where(dt > 0, ...)`` (``numpy_backend.log_filter``).
+    """
+    g = ticks.shape[0]
+    r = tl.n_rows
+    if r not in (1, g):
+        raise ValueError(f"{g} tick rows for {r} timeline rows")
+    span = log_filter_span(tl, ticks, tau)
+    ext_e = torch.cat([span[0].expand(r, 1), tl.edges,
+                       span[1].expand(r, 1)], 1)
+    ext_p = torch.cat([tl.idle_w[:, None], tl.powers, tl.idle_w[:, None]], 1)
+    n_seg = ext_p.shape[1]
+    dts = torch.diff(ext_e, dim=1)
+
+    y = torch.empty((g, n_seg + 1), dtype=F64, device=ticks.device)
+    y[:, 0] = tl.idle_w.expand(g)
+    for i in range(n_seg):
+        dt = dts[:, i]
+        sp = ext_p[:, i]
+        step = sp + (y[:, i] - sp) * torch.exp(-dt / tau)
+        y[:, i + 1] = torch.where(dt > 0, step, y[:, i])
+
+    idx = torch.clamp(searchsorted_rows(ext_e, ticks, "right") - 1,
+                      0, n_seg - 1)
+    y_at = torch.gather(y, 1, idx)
+    sp_at = torch.gather(_expand_rows(ext_p, g), 1, idx)
+    e_at = torch.gather(_expand_rows(ext_e, g), 1, idx)
+    return sp_at + (y_at - sp_at) * torch.exp(-(ticks - e_at)
+                                              / tau[:, None])
+
+
 def query_slots(sched: ReadingSchedule, tq: torch.Tensor) -> torch.Tensor:
     """Reading slot current at wall-clock times ``tq`` [N, K]: the
     arithmetic index ``floor((t - phase) / T) - k0``, settled against the
@@ -118,6 +180,62 @@ def query_slots(sched: ReadingSchedule, tq: torch.Tensor) -> torch.Tensor:
         j = torch.where((tn <= tq) & (jn > j), jn, j)
     return torch.minimum(torch.maximum(j, sched.first[:, None]),
                          sched.last[:, None])
+
+
+def poll_counts(sched: ReadingSchedule, grid: PollGrid, a: torch.Tensor,
+                b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor, torch.Tensor]:
+    """Closed-form poll counting over uniform grids, the core of
+    ``SensorBank.integrate_polled``: how many poll instants of ``grid``
+    inside each device's ``[a_i, b_i]`` read each reading slot.  Returns
+    ``counts`` [N, M], ``slot_b`` [N] (the slot current at the final
+    selected poll), ``tail_dt`` [N] (the partial step ``b - r(j1)``) and
+    ``nonempty`` [N].  Formula for formula the reference's
+    (``numpy_backend.poll_counts``): the ``ceil``/``floor`` indices
+    settled twice against the grid values, the same for each slot's
+    first poll, and the first and last readings extended to ±inf."""
+    n = a.shape[0]
+    dev = a.device
+    period_s = grid.period_s
+    off = grid.grid_offset
+    m_i = torch.floor((grid.t1 - grid.t0) / period_s).to(I64)
+
+    def q(idx):
+        # true wall-clock query instant, as SensorBank.query sees it
+        return grid.t0 + period_s * idx.to(F64)
+
+    def r(idx):
+        # reported (possibly re-synchronised) poll timestamp
+        return q(idx) + off
+
+    j0 = torch.ceil((a - off - grid.t0) / period_s).to(I64)
+    j1 = torch.floor((b - off - grid.t0) / period_s).to(I64)
+    for _ in range(2):
+        j0 = torch.where(r(j0 - 1) >= a, j0 - 1, j0)
+        j0 = torch.where(r(j0) < a, j0 + 1, j0)
+        j1 = torch.where(r(j1 + 1) <= b, j1 + 1, j1)
+        j1 = torch.where(r(j1) > b, j1 - 1, j1)
+    j0 = torch.clamp_min(j0, 0)
+    j1 = torch.minimum(j1, m_i - 1)
+
+    ticks = sched.ticks
+    m = ticks.shape[1]
+    slot = torch.arange(m, device=dev)[None, :]
+    lo = torch.ceil((ticks - grid.t0) / period_s).to(I64)
+    for _ in range(2):
+        lo = torch.where(q(lo - 1) >= ticks, lo - 1, lo)
+        lo = torch.where(q(lo) < ticks, lo + 1, lo)
+    hi = torch.cat([lo[:, 1:] - 1,
+                    torch.full((n, 1), _FAR, dtype=I64, device=dev)], 1)
+    lo = torch.where(slot == sched.first[:, None], 0, lo)
+    hi = torch.where(slot == sched.last[:, None], _FAR, hi)
+    counts = (torch.minimum(hi, (j1 - 1)[:, None])
+              - torch.maximum(lo, j0[:, None]) + 1)
+    valid = (slot >= sched.first[:, None]) & (slot <= sched.last[:, None])
+    counts = torch.where(valid, torch.clamp_min(counts, 0), 0)
+
+    slot_b = query_slots(sched, q(j1)[:, None])[:, 0]
+    return counts, slot_b, b - r(j1), j1 >= j0
 
 
 def snapshot_energy_at(tq: torch.Tensor, last_t: torch.Tensor,

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, with their wrappers.
 
 * :mod:`.stream_ingest` — the monitor's general slab kernel;
-* :mod:`.stream_ingest_grid` — its rectangular clean-slab fast path.
+* :mod:`.stream_ingest_grid` — its rectangular clean-slab fast path;
+* :mod:`.log_filter` — the Kepler/Maxwell sensor filter of the fleet
+  audit's sensor simulation.
 
 Each wrapper runs the plain PyTorch version
 (:mod:`repro_torch.engine_backend.torch_backend`) for CPU tensors and

@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "stream_ingest": "stream_ingest.cu",
     "stream_ingest_grid": "stream_ingest_grid.cu",
+    "log_filter": "log_filter.cu",
 }
 
 # -fmad=false keeps every product separately rounded, as the plain

@@ -179,9 +179,16 @@ def test_port_noise_and_hidden_parameters_are_seeded_and_in_tolerance():
 
 
 def test_non_boxcar_profiles_name_the_later_slice():
+    """The logarithmic and estimation transients came with the fleet-audit
+    slice; the module-scope host timeline, still to come, names its
+    slice."""
     for name in ("kepler", "fermi2"):
-        with pytest.raises(NotImplementedError, match="fleet-audit slice"):
-            SensorBank.from_catalog([name], device=CPU)
+        bank = SensorBank.from_catalog([name], device=CPU)
+        bank.attach(_port_timeline(_timeline()))
+        assert bool(torch.isfinite(bank._values).all())
+    with pytest.raises(NotImplementedError, match="scalar §5 slice"):
+        SensorBank.from_catalog(["gh200_module_instant"], device=CPU,
+                                host_timeline=_port_timeline(_timeline()))
 
 
 def test_timeline_bank_integral_matches_reference():
