@@ -5,7 +5,7 @@
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the checkout's ``src/``.  Phases, each of which fails the run:
 
-1. print the card's name and power limit, build the three CUDA kernels
+1. print the card's name and power limit, build the four CUDA kernels
    (one ``nvcc`` each, started together) and print their registers and
    spills;
 2. hold the monitor's two kernels against their plain PyTorch versions on
@@ -28,7 +28,16 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    devices of every transient kind (Fig. 14) with the naive and §5
    protocols, its per-profile errors, its streamed moments against the
    exact ones, and ``log_filter`` held against its plain version and
-   timed at the largest shape the audit gave it.
+   timed at the largest shape the audit gave it;
+6. the scalar §5 path: ``step_integrate`` against its plain version at
+   adversarial rows, at a real §5 trial's [1, M] and at [4096, 8192],
+   timed at the last two; ``benchmarks/energy_cases.py``'s Figs. 15-17
+   grid (3 sensor classes × 3 loads × 4 seeds, naive and §5) through
+   ``measure_naive`` and ``measure_good_practice`` on the card (the main
+   path, whose ``step_integrate`` launches are counted) and on the CPU,
+   which must agree per run; 8 devices of the audit's kinds, batched
+   protocols against ``scalar_reference(i)``; ``compare_protocols`` on
+   the a100 burst over 5 seeds, §5 beating naive.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -78,7 +87,19 @@ REPLACES = {
     "stream_ingest_grid":
         "src/repro/core/engine_backend/pallas_backend.py:276",
     "log_filter": "src/repro/core/engine_backend/pallas_backend.py:497",
+    "step_integrate":
+        "src/repro/core/engine_backend/pallas_backend.py:424",
 }
+#: step_integrate's float64 operations per selected sample (mask select,
+#: sub, mul, add; the trapezoid rule's add and half counted too)
+STEP_OPS_PER_SAMPLE = 6
+STEP_WIDE = (4096, 8192)
+#: benchmarks/energy_cases.py (Figs. 15-17): case, profile, window, rise
+ENERGY_CASES = (("case1_100_100", "rtx3090_instant", 0.100, 0.25),
+                ("case2_1000_100", "rtx3090_average", 1.000, 1.25),
+                ("case3_25_100", "a100", 0.025, 0.25))
+ENERGY_LOADS = (("short", 0.025), ("medium", 0.100), ("long", 0.800))
+ENERGY_SEEDS = 4
 
 
 def check(cond, msg):
@@ -328,6 +349,8 @@ def main() -> int:
     results = run(dev, N_DEVICES, STREAM_S, FLAT_S)
     torch.cuda.empty_cache()
     results.append(audit(dev))
+    torch.cuda.empty_cache()
+    results.append(scalar_path(dev))
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -751,6 +774,277 @@ def audit(dev):
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, shape=[g, m, r, s1 - 1], bytes=nbytes,
         audit_s=secs, audit_devices_per_s=AUDIT_DEVICES / secs)
+
+
+# ---------------------------------------------------------------------------
+# the scalar §5 path
+# ---------------------------------------------------------------------------
+def step_cases(dev):
+    """Small adversarial step_integrate inputs on ``dev``: rows of padding
+    only and of one sample, windows before the first sample, after the
+    last, across padding and of zero length, t0 > t1, repeated timestamps,
+    window edges on samples; then M = 1 and M = 0."""
+    inf = math.inf
+    base = [0.1, 0.2, 0.3, 0.45, 0.5, 0.8, 1.0, 1.3, 1.4]
+
+    def pad(xs):
+        return xs + [inf] * (9 - len(xs))
+    rows = [(base, 0.25, 1.1), (base, -1.0, 5.0), (pad([]), 0.0, 1.0),
+            (pad([0.7]), 0.5, 0.9), (base, -2.0, 0.05),
+            (pad(base[:5]), 0.6, 0.9), (pad(base[:5]), 0.15, 3.0),
+            (base, 0.9, 0.4), (pad([0.1, 0.2, 0.2, 0.2, 0.3, 0.3, 0.6]),
+                               0.2, 0.3),
+            (base, 0.3, 1.0), (base, 0.5, 0.5), (pad(base[:2]), 0.2, 0.2)]
+    ts = np.array([r[0] for r in rows])
+    rng = np.random.default_rng(SEED + 13)
+    cases = [(ts, rng.uniform(60.0, 250.0, ts.shape),
+              np.array([r[1] for r in rows]), np.array([r[2] for r in rows])),
+             (np.array([[0.5], [inf], [0.5], [0.5]]),
+              np.array([[100.0], [7.0], [100.0], [100.0]]),
+              np.array([0.0, 0.0, 0.6, 0.5]), np.array([1.0, 1.0, 0.9, 0.5])),
+             (np.zeros((3, 0)), np.zeros((3, 0)), np.zeros(3), np.ones(3))]
+    return [to_card(c, dev) for c in cases]
+
+
+def step_wide_case(dev, n, m):
+    """[n, m] rows on ``dev``: sorted times at up to 2 ms gaps, a tenth of
+    them repeated, inf-padded from a random length on, with windows that
+    start before the first sample and end anywhere, padding included."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    f64 = dict(dtype=torch.float64, device=dev, generator=gen)
+    gaps = torch.rand((n, m), **f64) * 2e-3
+    ts = torch.cumsum(torch.where(gaps < 2e-4, 0.0, gaps), 1)
+    k = torch.randint(m // 2, m + 1, (n,), generator=gen, device=dev)
+    ts = torch.where(torch.arange(m, device=dev)[None, :] >= k[:, None],
+                     math.inf, ts)
+    t0 = torch.rand(n, **f64) * 2.0 - 0.2
+    return [ts, 60.0 + 190.0 * torch.rand((n, m), **f64), t0,
+            t0 + torch.rand(n, **f64) * 8.0]
+
+
+def step_tolerance(ts, vals, t0, t1, trapezoid):
+    """Per row, 1e-12 × Σ|dens·dt| over the row plus 1e-12 × |tail|: the
+    kernel sums the window in a tree order, the plain version differences
+    a prefix sum."""
+    n, m = ts.shape
+    if m == 0:
+        return torch.zeros(n, dtype=torch.float64, device=ts.device)
+    fin = torch.isfinite(ts[:, 1:])
+    dt = torch.where(fin, ts[:, 1:], 0.0) - torch.where(fin, ts[:, :-1], 0.0)
+    dens = (0.5 * (vals[:, :-1] + torch.where(fin, vals[:, 1:], 0.0))
+            if trapezoid else vals[:, :-1])
+    j0 = (ts < t0[:, None]).sum(1)
+    j1 = (ts <= t1[:, None]).sum(1) - 1
+    j1c = torch.clamp(j1, 0, m - 1)[:, None]
+    tail = (torch.gather(vals, 1, j1c) * (t1[:, None]
+                                           - torch.gather(ts, 1, j1c)))[:, 0]
+    tail = torch.where((j1 >= j0) & (j0 < m), tail.abs(), 0.0)
+    return 1e-12 * ((dens * dt).abs().sum(1) + tail)
+
+
+def step_err(args, trapezoid):
+    """The kernel against its plain version on the same card inputs;
+    returns the largest absolute difference."""
+    from repro_torch.engine_backend import torch_backend as tb
+    from repro_torch.kernels.step_integrate import step_integrate
+    got = step_integrate(*args, trapezoid=trapezoid)
+    want = tb.step_integrate(*args, trapezoid=trapezoid)
+    torch.cuda.synchronize()
+    shape = tuple(args[0].shape)
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"step_integrate at {shape}: output malformed")
+    diff = (got - want).abs()
+    check(bool((diff <= step_tolerance(*args, trapezoid)).all()),
+          f"step_integrate off by {float(diff.max()):.3e} at {shape} "
+          f"(trapezoid={trapezoid})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def energy_grid(dev):
+    """``benchmarks/energy_cases.py``'s Figs. 15-17 grid through the
+    port's scalar protocols on ``dev``: {(case, load, seed): (naive J, §5
+    J per repetition, truth J)}."""
+    from repro_torch.core import load as loads
+    from repro_torch.core import meter as pm
+    from repro_torch.core import profiles
+    from repro_torch.core.calibrate import CalibrationRecord
+    from repro_torch.core.sensor import OnboardSensor
+    out = {}
+    for case, prof_name, W, rise in ENERGY_CASES:
+        prof = profiles.get(prof_name)
+        calib = CalibrationRecord(
+            "bench", prof_name, prof.update_period_s, W,
+            "instant" if W <= prof.update_period_s else "linear", rise,
+            sampled_fraction=min(1.0, W / prof.update_period_s))
+        for load_name, dur in ENERGY_LOADS:
+            wl = pm.Workload(load_name, loads.multi_phase_workload(
+                [(dur * 0.5, 235.0), (dur * 0.5, 150.0)]))
+            for seed in range(ENERGY_SEEDS):
+                naive = pm.measure_naive(
+                    OnboardSensor(prof, seed=900 + seed, device=dev), wl,
+                    start_offset_s=0.3 + seed * 0.041)
+                est = pm.measure_good_practice(
+                    OnboardSensor(prof, seed=900 + seed, device=dev), wl,
+                    calib, pm.GoodPracticeConfig(n_trials=2), seed=seed)
+                out[(case, load_name, seed)] = (naive, est.joules_per_rep,
+                                                wl.true_energy_j)
+    return out
+
+
+def scalar_path(dev):
+    """Phase 6; returns the step_integrate kernel's record."""
+    from repro_torch.core import load as loads
+    from repro_torch.core import meter as pm
+    from repro_torch.core import profiles
+    from repro_torch.core.calibrate import CalibrationRecord, nominal_record
+    from repro_torch.core.fleet_engine import SensorBank
+    from repro_torch.core.sensor import OnboardSensor
+    from repro_torch.engine_backend import torch_backend as tb
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.log_filter import log_filter
+    from repro_torch.kernels.step_integrate import step_integrate
+
+    # -- 6a. the kernel against its plain version -----------------------------
+    small_err = max(step_err(c, trap) for c in step_cases(dev)
+                    for trap in (False, True))
+    log(f"step_integrate vs plain, 3 small adversarial cases x 2 rules: "
+        f"max_abs_err={small_err:.3e}")
+    calib_a100 = CalibrationRecord("d0", "a100", 0.100, 0.025, "instant",
+                                   0.25, sampled_fraction=0.25)
+    burst = pm.Workload("burst100ms", loads.workload_burst(0.100, 210.0))
+    captured = {}
+
+    def recording(*args, **kw):
+        captured.setdefault("trial", args)
+        return step_integrate(*args, **kw)
+
+    pm.step_integrate = recording
+    try:
+        pm.measure_good_practice(
+            OnboardSensor(profiles.get("a100"), seed=900, device=dev), burst,
+            calib_a100, pm.GoodPracticeConfig(n_trials=2), seed=0)
+    finally:
+        pm.step_integrate = step_integrate
+    trial = list(captured["trial"])
+    wide = step_wide_case(dev, *STEP_WIDE)
+    err = max(step_err(a, trap) for a in (trial, wide)
+              for trap in (False, True))
+    log(f"step_integrate vs plain at a §5 trial's {list(trial[0].shape)} "
+        f"and at {list(STEP_WIDE)}: max_abs_err={err:.3e}")
+
+    # -- 6b. the main path: the Figs. 15-17 grid on the card and the CPU ------
+    step_integrate.launches = 0
+    log_filter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = energy_grid(dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = step_integrate.launches
+    check(launches > 0, "the scalar protocols ran no step_integrate kernel")
+    cpu = energy_grid(torch.device("cpu"))
+    worst = 0.0
+    for key, (naive, gp, _) in card.items():
+        for got, want in ((naive, cpu[key][0]), (gp, cpu[key][1])):
+            rel = abs(got - want) / abs(want)
+            worst = max(worst, rel)
+            check(rel <= 1e-12, f"energy grid {key}: card {got!r} vs CPU "
+                  f"{want!r}")
+    log(f"energy grid: {len(card)} runs (naive + §5, 2 trials) on the card "
+        f"in {secs:.3f} s, {launches} step_integrate launches; card matches "
+        f"the CPU plain path (largest relative difference {worst:.3e})")
+    for case, _, _, _ in ENERGY_CASES:
+        for load_name, _ in ENERGY_LOADS:
+            runs = [card[(case, load_name, s)] for s in range(ENERGY_SEEDS)]
+            ne = [abs(n - t) / t for n, _, t in runs]
+            ge = [abs(g - t) / t for _, g, t in runs]
+            log(f"  {case}/{load_name}: mean |err| naive {np.mean(ne):.2%}, "
+                f"good practice {np.mean(ge):.2%}")
+
+    # -- 6c. batched protocols against scalar_reference(i) --------------------
+    names = list(AUDIT_KINDS) + ["gh200_module_instant", "rtx3090_530"]
+    bank = SensorBank.from_catalog(names, seed=SEED + 5, device=dev)
+    wl = pm.Workload("audit_burst", loads.multi_phase_workload(
+        [(0.130, 215.0), (0.070, 165.0)]))
+    calibs = {n: nominal_record("fleet", profiles.get(n)) for n in names}
+    cfg = pm.GoodPracticeConfig(n_trials=AUDIT_TRIALS)
+    naive_b = pm.measure_naive_batch(bank, wl, host_baseline_w=25.0)
+    gp_b = pm.measure_good_practice_batch(bank, wl, calibs, cfg,
+                                          host_baseline_w=25.0)
+    d_naive = d_gp = 0.0
+    for i, name in enumerate(names):
+        base = 25.0 if bool(bank.module_scope[i]) else None
+        e = pm.measure_naive(bank.scalar_reference(i), wl,
+                             host_baseline_w=base)
+        g = pm.measure_good_practice(bank.scalar_reference(i), wl,
+                                     calibs[name], cfg, host_baseline_w=base,
+                                     seed=i).joules_per_rep
+        d_naive = max(d_naive, abs(float(naive_b[i]) - e))
+        d_gp = max(d_gp, abs(float(gp_b.joules_per_rep[i]) - g))
+        check(abs(float(naive_b[i]) - e) <= 1e-9,
+              f"{name}: batched naive {float(naive_b[i])!r} vs scalar {e!r}")
+        check(abs(float(gp_b.joules_per_rep[i]) - g) <= 1e-3,
+              f"{name}: batched §5 {float(gp_b.joules_per_rep[i])!r} vs "
+              f"scalar {g!r}")
+    log(f"8 devices, batched vs scalar_reference(i): naive within "
+        f"{d_naive:.3e} J, §5 within {d_gp:.3e} J")
+
+    # -- 6d. compare_protocols on the a100 burst ------------------------------
+    naive_e, gp_e = [], []
+    for seed in range(5):
+        r = pm.compare_protocols(
+            OnboardSensor(profiles.get("a100"), seed=300 + seed, device=dev),
+            burst, calib_a100, pm.GoodPracticeConfig(), seed=seed)
+        naive_e.append(r["naive_err"])
+        gp_e.append(r["gp_err"])
+    log("compare_protocols, a100, 100 ms burst, seeds 0-4: naive err "
+        + " ".join(f"{e:+.2%}" for e in naive_e) + "; good practice "
+        + " ".join(f"{e:+.2%}" for e in gp_e))
+    check(np.mean(np.abs(gp_e)) < np.mean(np.abs(naive_e)),
+          "good practice did not beat naive on the a100 burst")
+
+    # -- 6e. times at the trial's shape and the wide shape --------------------
+    def bound(args):
+        """(bound ms, what bounds it, bytes needed, bytes of whole rows):
+        what these windows need is 16 bytes per selected sample (its time
+        and reading) and 24 per row (t0, t1, the integral); reading every
+        input whole would be N·M·16 + N·24."""
+        ts, _, a, b = args
+        n, m = ts.shape
+        j0 = (ts < a[:, None]).sum(1)
+        j1 = (ts <= b[:, None]).sum(1) - 1
+        sel = int(torch.where((j1 >= j0) & (j0 < m), j1 - j0 + 1, 0).sum())
+        need = sel * 16 + n * 24
+        bytes_ms = need / HBM_BYTES_PER_S * 1e3
+        ops_ms = sel * STEP_OPS_PER_SAMPLE / FP64_OPS_PER_S * 1e3
+        return (max(bytes_ms, ops_ms),
+                "bytes" if bytes_ms >= ops_ms else "operations",
+                need, n * m * 16 + n * 24)
+
+    ms = time_ms(lambda: step_integrate(*trial), 200)
+    plain_ms = time_ms(lambda: tb.step_integrate(*trial), 50)
+    ms_wide = time_ms(lambda: step_integrate(*wide), 20)
+    plain_wide = time_ms(lambda: tb.step_integrate(*wide), 5)
+    (b_ms, by, need, full), (b_wide, _, need_w, full_w) = (bound(trial),
+                                                           bound(wide))
+    log(f"step_integrate at {list(trial[0].shape)}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({need} of {full} "
+        f"bytes); at {list(STEP_WIDE)}: kernel {ms_wide:.4f} ms, plain "
+        f"{plain_wide:.3f} ms, bound {b_wide:.4f} ms ({need_w} of {full_w} "
+        f"bytes)")
+    return dict(
+        name="step_integrate", route="cuda",
+        source=f"src/repro_torch/kernels/csrc/"
+               f"{_build.SOURCES['step_integrate']}",
+        replaces=REPLACES["step_integrate"], launches=launches,
+        max_abs_err=max(err, small_err), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+        shape=list(trial[0].shape), bytes=need, bytes_rows=full,
+        ms_wide=ms_wide, plain_ms_wide=plain_wide, bound_ms_wide=b_wide,
+        bytes_wide=need_w, bytes_rows_wide=full_w,
+        shape_wide=list(STEP_WIDE), grid_s=secs,
+        log_filter_launches_scalar=log_filter.launches)
 
 
 if __name__ == "__main__":

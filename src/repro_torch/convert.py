@@ -9,7 +9,9 @@ be compared like with like.  Field names follow the reference:
 ``SensorBank.true_gain/true_offset/true_phase/_model_gain``, the
 ``StreamCorrections`` fields, and the ``state.*`` / ``ring.*`` /
 ``periods.*`` / ``moments.*`` keys of the reference's checkpoint layout
-(``repro.core.stream.schema.pack_monitor``).
+(``repro.core.stream.schema.pack_monitor``).  :func:`onboard_sensor` reads
+a reference ``OnboardSensor``'s attributes by name; nothing of
+:mod:`repro` is imported.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import torch
 
 from repro_torch._device import DeviceLike
 from repro_torch.core.fleet_engine import SensorBank, StreamingMoments
+from repro_torch.core.ground_truth import ActivityTimeline
+from repro_torch.core.sensor import OnboardSensor, SensorProfile
 from repro_torch.core.stream.estimators import StreamCorrections
 from repro_torch.core.stream.monitor import MonitorService
 from repro_torch.core.stream.state import DeviceState
@@ -49,6 +53,36 @@ def sensor_bank(profile_names: Sequence[str], true_gain: np.ndarray,
                        for x in (true_gain, true_offset, true_phase,
                                  model_gain)))
     return bank
+
+
+def timeline(edges: np.ndarray, powers: np.ndarray,
+             idle_w: float) -> ActivityTimeline:
+    """A port :class:`ActivityTimeline` from a reference timeline's
+    ``edges``, ``powers`` and ``idle_w``."""
+    return ActivityTimeline(torch.as_tensor(np.asarray(edges, np.float64)),
+                            torch.as_tensor(np.asarray(powers, np.float64)),
+                            float(idle_w))
+
+
+def onboard_sensor(ref_sensor, device: DeviceLike = "cuda") -> OnboardSensor:
+    """A port :class:`OnboardSensor` with the reference sensor's profile
+    (every field), seed, host timeline and hidden gain, offset, phase and
+    (estimation sensors') model gain.  The seed still drives the port's
+    own reading noise and jitter."""
+    host = ref_sensor.host_timeline
+    sensor = OnboardSensor(
+        SensorProfile(**dataclasses.asdict(ref_sensor.profile)),
+        seed=ref_sensor.seed,
+        host_timeline=None if host is None else timeline(
+            host.edges, host.powers, host.idle_w),
+        device=device)
+    sensor.bank._set_hidden(*(torch.tensor([float(x)], dtype=torch.float64)
+                              for x in (ref_sensor.true_gain,
+                                        ref_sensor.true_offset,
+                                        ref_sensor.true_phase,
+                                        getattr(ref_sensor, "_model_gain",
+                                                1.0))))
+    return sensor
 
 
 def bank_to_numpy(bank: SensorBank) -> Dict[str, np.ndarray]:

@@ -17,11 +17,15 @@ The counterpart of :mod:`repro.core.fleet_engine`:
   streamed moments (:class:`FleetAuditResult`).
 * :class:`StreamingMoments` — the Chan-merge moment accumulator.
 
-Random draws come from explicit :class:`torch.Generator`\\ s on the CPU,
-moved to the bank's device, so a bank gives the same readings on the
-card and on the CPU.  They are not the reference's per-device PCG64
-streams: to compare against the reference, carry its hidden parameters
-across with :func:`repro_torch.convert.sensor_bank`.
+The hidden parameters are drawn once per fleet from a
+:class:`torch.Generator` on the CPU.  The reading noise and the poll
+jitter come from the keyed stream
+(:mod:`repro_torch.engine_backend.keyed_rng`) on the bank's device, keyed
+by the bank's seed and addressed by (fleet row, slot): a device reads the
+same whatever slab or profile group it is measured in, and on the card as
+on the CPU.  None of these are the reference's per-device PCG64 streams:
+to compare against the reference, carry its hidden parameters across
+with :func:`repro_torch.convert.sensor_bank` and substitute its draws.
 """
 from __future__ import annotations
 
@@ -41,8 +45,10 @@ from repro_torch.core.meter import (GoodPracticeConfig, Workload,
                                     as_workload_set,
                                     measure_good_practice_batch,
                                     measure_naive_batch)
-from repro_torch.core.sensor import SensorProfile, SensorUnsupported
+from repro_torch.core.sensor import (SensorProfile, SensorUnsupported,
+                                     _sum_timelines)
 from repro_torch.core.telemetry import SHUNT_TOLERANCE
+from repro_torch.engine_backend import keyed_rng
 from repro_torch.engine_backend import torch_backend as _tb
 from repro_torch.engine_backend.pytrees import PollGrid, ReadingSchedule
 from repro_torch.kernels.log_filter import log_filter
@@ -88,7 +94,9 @@ class SensorBank:
     model gain are per-device tensors on ``device``; the transient kind,
     scope and support are host arrays.  The hidden parameters are drawn
     once, on the CPU, from a :class:`torch.Generator` seeded by ``seed``;
-    :meth:`subset` slices them, never re-draws them.
+    :meth:`subset` slices them, never re-draws them.  ``host_timeline`` is
+    the host draw that module-scope sensors (GH200 ``instant``) add to
+    their readings.
     """
 
     _ROW_FIELDS = ("update_period_s", "window_s", "tau_s", "quantum_w",
@@ -100,12 +108,8 @@ class SensorBank:
                  seed: int = 0,
                  host_timeline: Optional[ActivityTimeline] = None,
                  device: DeviceLike = "cuda"):
-        if host_timeline is not None:
-            raise NotImplementedError(
-                "host_timeline (the host draw a module-scope sensor adds "
-                "to its readings) is not ported yet: it comes with the "
-                "scalar §5 slice (ROADMAP.md, queue A)")
         self.device = resolve_device(device)
+        self.host_timeline = host_timeline
         self.profiles: List[SensorProfile] = list(profile_list)
         n = len(self.profiles)
         if n == 0:
@@ -194,6 +198,14 @@ class SensorBank:
     def true_phase(self) -> torch.Tensor:
         return self._phase
 
+    def scalar_reference(self, i: int):
+        """The scalar sensor of row ``i``: an
+        :class:`~repro_torch.core.sensor.OnboardSensor` over
+        ``subset([i])``, whose readings equal this bank's row ``i``
+        bitwise."""
+        from repro_torch.core.sensor import OnboardSensor
+        return OnboardSensor.of_bank(self.subset([i]))
+
     def _set_hidden(self, gain: torch.Tensor, offset: torch.Tensor,
                     phase: torch.Tensor,
                     model_gain: Optional[torch.Tensor] = None) -> None:
@@ -222,6 +234,7 @@ class SensorBank:
         nb = object.__new__(SensorBank)
         nb.device = self.device
         nb.seed = self.seed
+        nb.host_timeline = self.host_timeline
         nb.profiles = [self.profiles[i] for i in idx]
         for f in self._ROW_FIELDS:
             x = getattr(self, f)
@@ -262,6 +275,10 @@ class SensorBank:
             bank = timeline
             s = torch.zeros(n, dtype=F64, device=dev)
         else:
+            if (shifts is not None and self.host_timeline is not None
+                    and self.module_scope.any()):
+                raise NotImplementedError(
+                    "per-device shifts with a module-scope host timeline")
             bank = TimelineBank.from_timelines([timeline], device=dev)
             s = (torch.zeros(n, dtype=F64, device=dev) if shifts is None
                  else torch.as_tensor(shifts, dtype=F64,
@@ -289,22 +306,43 @@ class SensorBank:
             raise ValueError("a device published no readings in the window")
         last = first + count - 1
 
+        # module-scope rows read the chip's timeline plus the host's;
+        # sources: (timeline bank, its rows' device rows or None, devices)
+        if self.host_timeline is not None and self.module_scope.any():
+            mod_rows = np.nonzero(self.module_scope)[0]
+            summed = ([_sum_timelines(bank.row(int(i)), self.host_timeline)
+                       for i in mod_rows] if per_device
+                      else [_sum_timelines(timeline, self.host_timeline)])
+            sources = [(bank, None, ~self.module_scope),
+                       (TimelineBank.from_timelines(summed, device=dev),
+                        mod_rows if per_device else None, self.module_scope)]
+        else:
+            sources = [(bank, None, np.ones(n, dtype=bool))]
+
         raw = torch.zeros_like(ticks)
         for kind in _TRANSIENTS:
-            rows = np.nonzero(self.transient == kind)[0]
-            if len(rows) == 0:
-                continue
-            rr = torch.as_tensor(rows, device=dev)
-            tl = (bank if bank.n_rows == 1 else bank.rows(rr)).arrays
-            t_eval = ticks[rr] - s[rr, None]
-            if kind == "boxcar":
-                raw[rr] = _tb.boxcar_means(
-                    tl, t_eval - self.window_s[rr, None], t_eval)
-            elif kind == "estimation":
-                raw[rr] = _tb.estimation_means(
-                    tl, t_eval - T[rr, None], t_eval, self._model_gain[rr])
-            else:
-                raw[rr] = log_filter(tl, t_eval, self.tau_s[rr])
+            for src, remap, sel in sources:
+                rows = np.nonzero((self.transient == kind) & sel)[0]
+                if len(rows) == 0:
+                    continue
+                rr = torch.as_tensor(rows, device=dev)
+                if src.n_rows == 1:
+                    tl = src.arrays
+                elif remap is not None:
+                    tl = src.rows(torch.as_tensor(
+                        np.searchsorted(remap, rows), device=dev)).arrays
+                else:
+                    tl = src.rows(rr).arrays
+                t_eval = ticks[rr] - s[rr, None]
+                if kind == "boxcar":
+                    raw[rr] = _tb.boxcar_means(
+                        tl, t_eval - self.window_s[rr, None], t_eval)
+                elif kind == "estimation":
+                    raw[rr] = _tb.estimation_means(
+                        tl, t_eval - T[rr, None], t_eval,
+                        self._model_gain[rr])
+                else:
+                    raw[rr] = log_filter(tl, t_eval, self.tau_s[rr])
 
         q = self.quantum_w[:, None]
         vals = self._gain[:, None] * raw + self._offset[:, None]
@@ -315,26 +353,30 @@ class SensorBank:
         self._ticks, self._values = ticks, vals
         self._first, self._last, self._k0 = first, last, k0
 
+    def _row_keys(self) -> torch.Tensor:
+        """Each device's fleet row [N, 1] on the bank's device: the row
+        word of its keyed-stream counters."""
+        keyed_rng.check_index("fleet row", int(self._rows.max()))
+        return torch.as_tensor(self._rows, dtype=torch.int64,
+                               device=self.device)[:, None]
+
     def _noise(self, m: int, first: torch.Tensor,
                count: torch.Tensor) -> torch.Tensor:
         """Reading jitter [N, m], aligned to each device's valid slots as
         the reference's is (slot ``first_i + c`` gets row ``i``'s draw
         ``c``; zero outside).
 
-        Drawn on the CPU from a :class:`torch.Generator` seeded by the
-        bank's seed and the fleet index of its first device, so a bank
-        draws the same on every device and two slabs of one fleet draw
-        from different streams; the draws follow from which rows a bank
-        holds, so a chunked audit's noise differs from the unchunked
-        one's (its hidden parameters do not)."""
-        seq = np.random.SeedSequence([self.seed, int(self._rows[0])])
-        gen = torch.Generator().manual_seed(
-            int(seq.generate_state(1, np.uint64)[0]))
-        z = torch.randn((self.n_devices, m), generator=gen,
-                        dtype=F64).to(self.device)
-        src = torch.arange(m, device=self.device)[None, :] - first[:, None]
-        valid = (src >= 0) & (src < count[:, None])
-        z = torch.gather(z, 1, torch.clamp(src, 0, m - 1))
+        Draw ``c`` of device ``i`` is the keyed stream's normal at counter
+        (fleet row ``_rows[i]``, ``c``) under the bank's seed, made on the
+        bank's device: it depends on neither the slab nor the profile
+        group the device is measured in, and every attach draws the same
+        numbers, as the reference's per-device ``default_rng(seed + 1)``
+        does."""
+        keyed_rng.check_index("slot", m)
+        slot = torch.arange(m, device=self.device)[None, :] - first[:, None]
+        valid = (slot >= 0) & (slot < count[:, None])
+        z = keyed_rng.normal(self.seed, self._row_keys(),
+                             torch.clamp_min(slot, 0), keyed_rng.TAG_NOISE)
         return torch.where(valid, z * self.noise_w[:, None], 0.0)
 
     # -- query API --------------------------------------------------------
@@ -348,10 +390,13 @@ class SensorBank:
     def _schedule_rows(self, lo: int, hi: int) -> ReadingSchedule:
         return ReadingSchedule(*(x[lo:hi] for x in self._schedule))
 
-    def query(self, t) -> torch.Tensor:
+    def query(self, t, chunk_devices: Union[int, str, None] = None
+              ) -> torch.Tensor:
         """Latest published reading per device at time(s) ``t``: a scalar
         (returns [N]), a shared [K] grid or per-device times [N, K]
-        (returns [N, K])."""
+        (returns [N, K]).  ``chunk_devices`` bounds the slot-index
+        intermediates to device slabs (``"auto"``:
+        :func:`auto_chunk_devices`); the values do not depend on it."""
         sched = self._schedule
         t = torch.as_tensor(t, dtype=F64, device=self.device)
         scalar = t.ndim == 0
@@ -362,8 +407,38 @@ class SensorBank:
             tq = t
         else:
             raise ValueError(f"bad query shape {tuple(t.shape)}")
-        out = torch.gather(self._values, 1, _tb.query_slots(sched, tq))
+        if chunk_devices == "auto":
+            chunk_devices = auto_chunk_devices(self.n_devices, tq.shape[1])
+        if chunk_devices is None or chunk_devices >= self.n_devices:
+            out = torch.gather(self._values, 1, _tb.query_slots(sched, tq))
+        else:
+            out = torch.empty(tq.shape, dtype=F64, device=self.device)
+            for lo in range(0, self.n_devices, chunk_devices):
+                hi = min(lo + chunk_devices, self.n_devices)
+                j = _tb.query_slots(self._schedule_rows(lo, hi), tq[lo:hi])
+                out[lo:hi] = torch.gather(self._values[lo:hi], 1, j)
         return out[:, 0] if scalar else out
+
+    def poll(self, t0: float, t1: float, period_s: float = 0.001,
+             jitter_s: float = 0.0, chunk_devices: Optional[int] = None):
+        """Fleet-wide ``nvidia-smi -lms``: the shared grid of
+        ``floor((t1 - t0) / period_s)`` instants from ``t0`` (the count
+        computed on the host, as the reference does) and the [N, M]
+        readings.  With ``jitter_s`` each device's instants are late by
+        U[0, jitter_s) draws of the keyed stream (fleet row, poll index),
+        sorted, and the times are [N, M].  ``chunk_devices`` (default: a
+        16M-element budget) slabs the query."""
+        n = int(math.floor((t1 - t0) / period_s))
+        ts = t0 + period_s * torch.arange(n, dtype=F64, device=self.device)
+        if chunk_devices is None:
+            chunk_devices = auto_chunk_devices(self.n_devices, n)
+        if jitter_s > 0:
+            keyed_rng.check_index("poll", n)
+            u = keyed_rng.uniform(self.seed, self._row_keys(),
+                                  torch.arange(n, device=self.device)[None, :],
+                                  keyed_rng.TAG_JITTER)
+            ts = torch.sort(ts[None, :] + jitter_s * u, dim=1).values
+        return ts, self.query(ts, chunk_devices=chunk_devices)
 
     def iter_poll_slabs(self, t0: float, t1: float,
                         period_s: float = 0.001, tick_s: float = 0.5,
@@ -485,12 +560,28 @@ class StreamingMoments:
 # Monte-Carlo fleet audit
 # ---------------------------------------------------------------------------
 
+def _percentiles(x: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
+    """``np.percentile(x, qs)`` of a 1-D tensor: its default linear
+    interpolation, its ``_lerp``, by one sort (``torch.quantile`` refuses
+    inputs above 2^24 elements)."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    out = []
+    for q in qs:
+        pos = (q / 100) * (n - 1)
+        lo = math.floor(pos)
+        a, b = s[lo], s[min(lo + 1, n - 1)]
+        t = pos - lo
+        d = b - a
+        out.append(b - d * (1 - t) if t >= 0.5 else a + d * t)
+    return torch.stack(out)
+
+
 def _err_stats(e: torch.Tensor) -> Dict[str, float]:
     """Mean, mean |e|, population std, the 50/90/99th percentiles of |e|
     (linear interpolation, as ``np.percentile``) and the worst |e|."""
     ae = e.abs()
-    q = torch.quantile(ae, torch.tensor([0.50, 0.90, 0.99], dtype=F64,
-                                        device=e.device))
+    q = _percentiles(ae, (50, 90, 99))
     vals = torch.stack([e.mean(), ae.mean(), e.std(correction=0), q[0], q[1],
                         q[2], ae.max()]).tolist()
     return dict(zip(("mean_err", "mean_abs_err", "std_err", "p50_abs",
@@ -574,11 +665,11 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
     two-phase ``audit_burst``), N workloads or a
     :class:`~repro_torch.core.meter.WorkloadSet`.  ``chunk_devices``
     streams the audit over device slabs of that size; each slab takes its
-    rows of the fleet's hidden parameters (drawn once) and its devices'
-    §5 start offsets (which follow from the device index), so with
-    noise-free sensors a chunked audit matches the unchunked one per
-    device, up to the order of float sums.  The reading noise is drawn
-    per slab (see :meth:`SensorBank._noise`).  Error moments merge
+    rows of the fleet's hidden parameters (drawn once), and its devices'
+    reading noise and §5 start offsets follow from the fleet row and the
+    protocol seed alone (:meth:`SensorBank._noise`), so a chunked audit
+    matches the unchunked one per device up to the order of float sums.
+    Error moments merge
     across slabs by :class:`StreamingMoments` (``result.streamed``);
     ``result.stats()`` gives the exact ones.  A fleet with any
     module-scope sensor (GH200 ``instant``) is measured with a zero host

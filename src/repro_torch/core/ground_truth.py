@@ -1,10 +1,14 @@
-"""Ground-truth power: activity timelines and stacked timeline banks.
+"""Ground-truth power: activity timelines, stacked timeline banks and the
+external-meter analogue.
 
-The counterparts of :class:`repro.core.ground_truth.ActivityTimeline`,
-``from_segments`` and the parts of ``TimelineBank`` the monitor's source
-and the fleet audit need.  An :class:`ActivityTimeline` is a small description (float64
-tensors on the CPU); a :class:`TimelineBank` holds ``N`` padded traces
-on a device and answers exact integrals there.
+The counterparts of :mod:`repro.core.ground_truth`.  An
+:class:`ActivityTimeline` is a small description (float64 tensors on the
+CPU) whose queries run on the device of the query times; a
+:class:`TimelineBank` holds ``N`` padded traces on a device and answers
+exact integrals there.  :class:`GroundTruthMeter` plays the paper's PMD:
+a quantised, noisy 5 kHz sampling of a timeline, its ADC noise drawn from
+the keyed stream (:mod:`repro_torch.engine_backend.keyed_rng`) with the
+meter's seed as the key and the sample index as the counter.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.engine_backend import keyed_rng
 from repro_torch.engine_backend.pytrees import TimelineArrays
-from repro_torch.engine_backend.torch_backend import timeline_integral
+from repro_torch.engine_backend.torch_backend import (searchsorted_rows,
+                                                      timeline_integral)
 
 F64 = torch.float64
 
@@ -50,28 +56,70 @@ class ActivityTimeline:
     def t_start(self) -> float:
         return float(self.edges[0])
 
-    def energy(self) -> float:
-        """Analytic ground-truth energy in joules over the covered
-        range."""
-        arrays = TimelineArrays(self.edges[None, :], self.powers[None, :],
-                                torch.tensor([self.idle_w], dtype=F64),
-                                torch.tensor([len(self.powers)]))
-        return float(timeline_integral(
-            arrays, self.edges[None, :1], self.edges[None, -1:])[0, 0])
+    def _on(self, t) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Query times as float64 and the edges and powers on their
+        device."""
+        t = torch.as_tensor(t, dtype=F64)
+        return t, self.edges.to(t.device), self.powers.to(t.device)
+
+    def power_at(self, t) -> torch.Tensor:
+        """P(t) at every query time, idle outside the covered range."""
+        t, e, p = self._on(t)
+        if len(p) == 0:
+            return torch.full_like(t, self.idle_w)
+        idx = torch.searchsorted(e, t.contiguous(), right=True) - 1
+        inside = (idx >= 0) & (idx < len(p)) & (t < e[-1])
+        return torch.where(inside, p[torch.clamp(idx, 0, len(p) - 1)],
+                           self.idle_w)
+
+    def integral(self, t0, t1) -> torch.Tensor:
+        """Exact ∫P dt over [t0, t1] (elementwise), idle outside
+        coverage: the reference's cumulative-energy formula."""
+        t1, e, p = self._on(t1)
+        t0 = torch.as_tensor(t0, dtype=F64, device=t1.device)
+        cum = torch.cat([torch.zeros(1, dtype=F64, device=e.device),
+                         torch.cumsum(p * torch.diff(e), 0)])
+
+        def eval_i(t):
+            tc = torch.clamp(t, e[0], e[-1])
+            idx = torch.clamp(torch.searchsorted(e, tc.contiguous(),
+                                                 right=True) - 1,
+                              0, len(p) - 1)
+            inner = cum[idx] + p[idx] * (tc - e[idx])
+            before = torch.clamp_max(t - e[0], 0.0) * self.idle_w
+            after = torch.clamp_min(t - e[-1], 0.0) * self.idle_w
+            return inner + before + after
+
+        return eval_i(t1) - eval_i(t0)
+
+    def mean_power(self, t0, t1) -> torch.Tensor:
+        t0 = torch.as_tensor(t0, dtype=F64)
+        t1 = torch.as_tensor(t1, dtype=F64, device=t0.device)
+        return self.integral(t0, t1) / torch.clamp_min(t1 - t0, 1e-12)
+
+    def energy(self, t0: Optional[float] = None,
+               t1: Optional[float] = None) -> float:
+        """Analytic ground-truth energy in joules over [t0, t1] (default:
+        the covered range)."""
+        return float(self.integral(self.t_start if t0 is None else t0,
+                                   self.t_end if t1 is None else t1))
 
     def shift(self, dt: float) -> "ActivityTimeline":
         return ActivityTimeline(self.edges + dt, self.powers, self.idle_w)
 
+    def with_idle(self, idle_w: float) -> "ActivityTimeline":
+        return ActivityTimeline(self.edges, self.powers, idle_w)
+
     @staticmethod
-    def concat(parts: Sequence["ActivityTimeline"],
-               gap_s: float = 0.0) -> "ActivityTimeline":
+    def concat(parts: Sequence["ActivityTimeline"], gap_s: float = 0.0,
+               idle_w: Optional[float] = None) -> "ActivityTimeline":
         """Concatenate fragments back-to-back (each re-based to follow the
-        previous one), inserting ``gap_s`` of the first part's idle power
-        between them; the reference's cursor arithmetic, step for
-        step."""
+        previous one), inserting ``gap_s`` of idle power (``idle_w``,
+        default the first part's) between them; the reference's cursor
+        arithmetic, step for step."""
         if not parts:
             raise ValueError("no parts")
-        idle = parts[0].idle_w
+        idle = parts[0].idle_w if idle_w is None else idle_w
         edges: List[float] = []
         powers: List[float] = []
         cursor = parts[0].t_start
@@ -88,8 +136,8 @@ class ActivityTimeline:
         return ActivityTimeline(torch.tensor(edges, dtype=F64),
                                 torch.tensor(powers, dtype=F64), idle)
 
-    def repeat(self, n: int) -> "ActivityTimeline":
-        return ActivityTimeline.concat([self] * n)
+    def repeat(self, n: int, gap_s: float = 0.0) -> "ActivityTimeline":
+        return ActivityTimeline.concat([self] * n, gap_s=gap_s)
 
 
 def from_segments(segments: Iterable[Tuple[float, float]],
@@ -191,6 +239,14 @@ class TimelineBank:
                             torch.full((n,), max(s, 1), dtype=torch.int64,
                                        device=dev))
 
+    def row(self, i: int) -> ActivityTimeline:
+        """Row ``i`` as an :class:`ActivityTimeline` on the CPU (an exact
+        round trip of :meth:`from_timelines`)."""
+        k = int(self.n_segs[i])
+        return ActivityTimeline(self.edges[i, :k + 1].cpu(),
+                                self.powers[i, :k].cpu(),
+                                float(self.idle_w[i]))
+
     def rows(self, idx) -> "TimelineBank":
         """A bank over a subset of rows."""
         idx = torch.as_tensor(idx, device=self.edges.device)
@@ -264,7 +320,129 @@ class TimelineBank:
                              f"{self.n_rows} bank rows")
         return timeline_integral(self.arrays, tq0, tq1).reshape(out_shape)
 
-    def energy(self) -> torch.Tensor:
-        """Analytic per-row ground-truth energy [N] in joules over each
-        row's covered range."""
-        return self.integral(self.t_start, self.t_end)
+    def power_at(self, t) -> torch.Tensor:
+        """P_i(t) per row, the scalar ``power_at`` applied to each row
+        (same query shapes as :meth:`integral`)."""
+        tq, out_shape = self._prep(t)
+        g = tq.shape[0]
+        if self.n_rows not in (1, g):
+            raise ValueError(f"{g} query rows for {self.n_rows} bank rows")
+        p = _expand(self.powers, g)
+        idx = searchsorted_rows(self.edges, tq, "right") - 1
+        vals = torch.gather(p, 1, torch.clamp(idx, 0, p.shape[1] - 1))
+        inside = ((idx >= 0) & (idx < _expand(self.n_segs, g)[:, None])
+                  & (tq < _expand(self.edges, g)[:, -1:]))
+        out = torch.where(inside, vals, _expand(self.idle_w, g)[:, None])
+        return out.reshape(out_shape)
+
+    def mean_power(self, t0, t1) -> torch.Tensor:
+        t0 = torch.as_tensor(t0, dtype=F64, device=self.device)
+        t1 = torch.as_tensor(t1, dtype=F64, device=self.device)
+        return self.integral(t0, t1) / torch.clamp_min(t1 - t0, 1e-12)
+
+    def energy(self, t0=None, t1=None) -> torch.Tensor:
+        """Analytic per-row ground-truth energy [N] in joules over
+        [t0_i, t1_i] (default: each row's covered range)."""
+        return self.integral(self.t_start if t0 is None else t0,
+                             self.t_end if t1 is None else t1)
+
+
+def _expand(x: torch.Tensor, g: int) -> torch.Tensor:
+    return x if x.shape[0] == g else x.expand(g, *x.shape[1:])
+
+
+def _adc_noise(keys: torch.Tensor, m: int) -> torch.Tensor:
+    """Standard normal ADC noise [G, m]: row ``g`` is the keyed stream of
+    key ``keys[g]`` (a meter's seed) at samples ``0 .. m-1``."""
+    samples = torch.arange(m, device=keys.device)[None, :]
+    keyed_rng.check_index("sample", m - 1)
+    return keyed_rng.normal(keys[:, None], torch.zeros_like(samples),
+                            samples, keyed_rng.TAG_ADC)
+
+
+def _trapezoid_rows(w: torch.Tensor, ts: torch.Tensor,
+                    counts: torch.Tensor) -> torch.Tensor:
+    """``np.trapezoid`` of each row's first ``counts[g]`` samples [G]."""
+    d = torch.diff(ts, dim=1)
+    terms = d * (w[:, 1:] + w[:, :-1]) / 2.0
+    keep = (torch.arange(d.shape[1], device=ts.device)[None, :]
+            < (counts - 1)[:, None])
+    return torch.where(keep, terms, 0.0).sum(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroundTruthMeter:
+    """PMD analogue: finite-rate, quantised, noisy sampling of the truth.
+
+    Quantisation mirrors the PMD hardware: 12-bit ADC, 0–31 V
+    (7.568 mV/level) and 0–200 A (48.8 mA/level) at a 12 V rail.  The ADC
+    noise of sample ``j`` is the keyed stream's draw ``j`` under key
+    ``seed``; traces are sampled on ``device``.
+    """
+
+    sample_hz: float = 5000.0
+    volt_per_level: float = 0.007568
+    amp_per_level: float = 0.0488
+    rail_volts: float = 12.0
+    noise_w: float = 0.3
+    seed: int = 0
+    device: DeviceLike = "cuda"
+
+    def _quantised(self, p: torch.Tensor) -> torch.Tensor:
+        """The ADC's reading of true power ``p``: volts near exact, amps
+        coarse."""
+        volts = (round(self.rail_volts / self.volt_per_level)
+                 * self.volt_per_level)
+        amps = p / self.rail_volts
+        amps = torch.round(amps / self.amp_per_level) * self.amp_per_level
+        return volts * amps
+
+    def trace(self, timeline: ActivityTimeline, t0: Optional[float] = None,
+              t1: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sampled ``(times, watts)`` like the PMD raw logger, on the
+        meter's device."""
+        dev = resolve_device(self.device)
+        t0 = timeline.t_start if t0 is None else float(t0)
+        t1 = timeline.t_end if t1 is None else float(t1)
+        n = max(2, int(round((t1 - t0) * self.sample_hz)))
+        ts = t0 + torch.arange(n, dtype=F64, device=dev) / self.sample_hz
+        z = _adc_noise(torch.tensor([self.seed], device=dev), n)[0]
+        return ts, self._quantised(timeline.power_at(ts)) + self.noise_w * z
+
+    def energy(self, timeline: ActivityTimeline, t0: Optional[float] = None,
+               t1: Optional[float] = None) -> float:
+        """Energy integrated from the sampled trace (what the paper's PMD
+        reports); close to but not exactly the analytic truth."""
+        ts, watts = self.trace(timeline, t0, t1)
+        n = torch.tensor([ts.shape[0]], device=ts.device)
+        return float(_trapezoid_rows(watts[None, :], ts[None, :], n)[0])
+
+    def energy_batch(self, bank: TimelineBank, t0=None, t1=None,
+                     chunk_rows: Optional[int] = None) -> torch.Tensor:
+        """Per-row PMD energies [N] for a whole :class:`TimelineBank`, on
+        its device.  Row ``i`` samples as a meter of seed ``seed + i``
+        would, so it equals ``GroundTruthMeter(seed=seed + i).energy(
+        bank.row(i))`` up to the order of the trapezoid's sum.  Rows go in
+        slabs of ``chunk_rows`` (default: ~16M samples each)."""
+        n = bank.n_rows
+        dev = bank.device
+        t0 = bank.t_start if t0 is None else torch.as_tensor(
+            t0, dtype=F64, device=dev).expand(n)
+        t1 = bank.t_end if t1 is None else torch.as_tensor(
+            t1, dtype=F64, device=dev).expand(n)
+        counts = torch.clamp_min(torch.round((t1 - t0) * self.sample_hz)
+                                 .to(torch.int64), 2)
+        m = int(counts.max())
+        if chunk_rows is None:
+            chunk_rows = max(1, 16_000_000 // max(m, 1))
+        out = torch.empty(n, dtype=F64, device=dev)
+        cols = torch.arange(m, dtype=F64, device=dev)[None, :]
+        for lo in range(0, n, chunk_rows):
+            hi = min(lo + chunk_rows, n)
+            ts = t0[lo:hi, None] + cols / self.sample_hz
+            rows = torch.arange(lo, hi, device=dev)
+            watts = self._quantised(bank.rows(rows).power_at(ts))
+            watts = watts + self.noise_w * _adc_noise(self.seed + rows, m)
+            out[lo:hi] = _trapezoid_rows(watts, ts, counts[lo:hi])
+        return out

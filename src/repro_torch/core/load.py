@@ -1,5 +1,6 @@
 """Benchmark-load generators, in timeline form (the part of
-:mod:`repro.core.load` the fleet audit and its tests use).
+:mod:`repro.core.load` the fleet audit, the scalar §5 protocols and their
+tests use).
 
 The scenario generators, their vectorised banks and
 ``FleetScenarioSpec`` are not ported yet (ROADMAP.md, queue A).
@@ -20,6 +21,13 @@ def square_wave(period_s: float, n_cycles: int, p_high: float,
         segs.append((max(1e-4, period_s * duty), p_high))
         segs.append((max(1e-4, period_s * (1 - duty)), p_low))
     return from_segments(segs, t0=t0, idle_w=idle_w)
+
+
+def workload_burst(duration_s: float, p_active: float,
+                   idle_w: float = 60.0) -> ActivityTimeline:
+    """One repetition of a real workload modelled as a constant-power
+    burst (the paper's per-kernel execution window)."""
+    return from_segments([(duration_s, p_active)], idle_w=idle_w)
 
 
 def multi_phase_workload(phases: List[Tuple[float, float]],

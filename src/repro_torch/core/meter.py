@@ -12,13 +12,18 @@ The counterpart of the batched half of :mod:`repro.core.meter`:
   rise time discarded and the readings re-synchronised by the window.
 
 The scalar ``measure_naive``, ``measure_good_practice`` and
-``compare_protocols`` and the ``OnboardSensor`` they run on come with a
-later slice (ROADMAP.md, queue A).
+``compare_protocols`` run on one :class:`~repro_torch.core.sensor.
+OnboardSensor` (a one-device bank): each polls the sensor on its device
+and integrates the readings with the ``step_integrate`` kernel
+(:mod:`repro_torch.kernels.step_integrate`; its plain version on the
+CPU).  The §5 trial start offsets come from the keyed stream under the
+protocol seed (:func:`_trial_starts`), so device ``i`` of a batched run
+starts where the scalar protocol with seed ``seeds[i]`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Optional, Sequence, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -26,9 +31,12 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.calibrate import CalibrationRecord
 from repro_torch.core.ground_truth import ActivityTimeline, TimelineBank
+from repro_torch.engine_backend import keyed_rng
+from repro_torch.kernels.step_integrate import step_integrate
 
-if TYPE_CHECKING:  # banks are duck-typed below
+if TYPE_CHECKING:  # banks and sensors are duck-typed below
     from repro_torch.core.fleet_engine import SensorBank
+    from repro_torch.core.sensor import OnboardSensor
 
 F64 = torch.float64
 I64 = torch.int64
@@ -117,6 +125,18 @@ class GoodPracticeConfig:
     max_reps: int = 4096
 
 
+@dataclasses.dataclass
+class EnergyEstimate:
+    joules_per_rep: float
+    std_j: float
+    n_trials: int
+    n_reps: int
+    trial_values: List[float]
+
+    def error_vs(self, truth_j: float) -> float:
+        return (self.joules_per_rep - truth_j) / truth_j
+
+
 class ModuleScopeError(RuntimeError):
     """Raised when a module-scope sensor (GH200 `instant`, §6) would be
     attributed to chip-level energy without a host baseline."""
@@ -134,6 +154,123 @@ class BatchedEnergyEstimate:
 
     def error_vs(self, truth_j) -> torch.Tensor:
         return (self.joules_per_rep - truth_j) / truth_j
+
+    def device(self, i: int) -> EnergyEstimate:
+        """The scalar view of one device's estimate."""
+        return EnergyEstimate(float(self.joules_per_rep[i]),
+                              float(self.std_j[i]), self.n_trials,
+                              int(self.n_reps[i]),
+                              [float(v) for v in self.trial_values[i]])
+
+
+# ---------------------------------------------------------------------------
+# Scalar protocols: one sensor
+# ---------------------------------------------------------------------------
+
+def _integrate_readings(ts: torch.Tensor, vals: torch.Tensor, t0: float,
+                        t1: float) -> float:
+    """Step-integrate one polled reading series over [t0, t1]: a [1, M]
+    call of the ``step_integrate`` kernel on the readings' device (its
+    plain version on the CPU)."""
+    dev = vals.device
+    return float(step_integrate(
+        ts[None, :], vals[None, :],
+        torch.tensor([t0], dtype=F64, device=dev),
+        torch.tensor([t1], dtype=F64, device=dev))[0])
+
+
+def _check_scope(sensor: "OnboardSensor",
+                 host_baseline_w: Optional[float]) -> float:
+    if sensor.profile.scope == "module" and host_baseline_w is None:
+        raise ModuleScopeError(
+            f"profile '{sensor.profile.name}' measures the whole module "
+            "(GPU+CPU+DRAM); supply host_baseline_w to subtract, or use a "
+            "chip-scope profile")
+    return host_baseline_w or 0.0
+
+
+def measure_naive(sensor: "OnboardSensor", workload: Workload,
+                  start_offset_s: float = 0.3,
+                  host_baseline_w: Optional[float] = None,
+                  poll_period_s: float = 0.001) -> float:
+    """Single run; integrate sensor power over the execution window
+    only."""
+    baseline = _check_scope(sensor, host_baseline_w)
+    tl = workload.timeline.shift(start_offset_s - workload.timeline.t_start)
+    sensor.attach(tl, t_end=tl.t_end + 1.0)
+    ts, vals = sensor.poll(0.0, tl.t_end + 0.5, period_s=poll_period_s)
+    vals = vals - baseline
+    return _integrate_readings(ts, vals, start_offset_s,
+                               start_offset_s + workload.duration_s)
+
+
+def measure_good_practice(sensor: "OnboardSensor", workload: Workload,
+                          calib: CalibrationRecord,
+                          cfg: GoodPracticeConfig = GoodPracticeConfig(),
+                          host_baseline_w: Optional[float] = None,
+                          seed: int = 0) -> EnergyEstimate:
+    """The paper's protocol; returns a per-repetition energy estimate.
+    Trial ``t`` starts ``0.3 + u_t`` s in, ``u`` the keyed stream's draws
+    for protocol seed ``seed`` (:func:`_trial_starts`)."""
+    baseline = _check_scope(sensor, host_baseline_w)
+    u = _trial_starts(np.array([seed]), cfg.n_trials)[0].tolist()
+    dur = workload.duration_s
+    reps = int(_reps_for(dur, cfg))
+
+    part_time = calib.sampled_fraction < 0.999
+    W = calib.time_shift_s
+    shifts = cfg.n_phase_shifts if part_time else 0
+    train0 = _build_train(workload.timeline, reps, shifts, W)
+    rise = calib.rise_time_s if (cfg.discard_rise and
+                                 np.isfinite(calib.rise_time_s)) else 0.0
+    n_skip = min(int(np.ceil(rise / max(dur, 1e-6))), reps - 1)
+    kept = reps - n_skip
+    gaps_inside = _gaps_between(n_skip, reps, shifts, reps)
+
+    trial_values: List[float] = []
+    for trial in range(cfg.n_trials):
+        start = 0.3 + u[trial]                          # randomised delay
+        train = train0.shift(start - train0.t_start)
+        sensor.attach(train, t_end=train.t_end + 2.0)
+        ts, vals = sensor.poll(0.0, train.t_end + 1.0,
+                               period_s=cfg.poll_period_s)
+        vals = vals - baseline
+        if cfg.apply_calibration and calib.gain:
+            vals = (vals - (calib.offset_w or 0.0)) / calib.gain
+        if cfg.time_shift:
+            ts = ts - W                 # reading at t covers [t-W, t]
+        # the kept repetitions' span inside the train, gaps included
+        t_begin = start + _train_offset(n_skip, dur, shifts, reps, W)
+        t_end = start + _train_offset(reps, dur, shifts, reps, W)
+        e = _integrate_readings(ts, vals, t_begin, t_end)
+        e -= gaps_inside * W * workload.timeline.idle_w
+        trial_values.append(e / kept)
+
+    arr = np.asarray(trial_values)
+    return EnergyEstimate(float(np.mean(arr)), float(np.std(arr)),
+                          cfg.n_trials, reps, trial_values)
+
+
+def compare_protocols(sensor: "OnboardSensor", workload: Workload,
+                      calib: CalibrationRecord,
+                      cfg: GoodPracticeConfig = GoodPracticeConfig(),
+                      seed: int = 0,
+                      host_baseline_w: Optional[float] = None) -> dict:
+    """Fig. 18: naive error vs good-practice error for one workload."""
+    truth = workload.true_energy_j
+    naive = measure_naive(sensor, workload, host_baseline_w=host_baseline_w,
+                          start_offset_s=0.3 + (seed % 17) * 0.037)
+    gp = measure_good_practice(sensor, workload, calib, cfg, seed=seed,
+                               host_baseline_w=host_baseline_w)
+    return {
+        "workload": workload.name,
+        "truth_j": truth,
+        "naive_j": naive,
+        "naive_err": (naive - truth) / truth,
+        "gp_j": gp.joules_per_rep,
+        "gp_err": gp.error_vs(truth),
+        "gp_std_j": gp.std_j,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -301,21 +438,24 @@ def as_workload_set(workload: Union[Workload, Sequence[Workload],
 
 
 def _trial_starts(seeds: np.ndarray, n_trials: int,
-                  gen: torch.Generator) -> torch.Tensor:
-    """Uniform [0, 1) trial-start draws [n, n_trials] on the CPU.
+                  device: DeviceLike = "cpu") -> torch.Tensor:
+    """Uniform [0, 1) trial-start draws [n, n_trials] on ``device``.
 
-    Row ``i`` is row ``seeds[i]`` of one table drawn from ``gen``, so a
-    device's draws depend on its protocol seed alone and not on which
-    devices share the call: a chunked audit draws what the unchunked one
-    does.  (The reference draws ``default_rng(seed)`` per device; the
-    parity tests substitute its draws here.)  The table has
-    ``max(seeds) + 1`` rows."""
+    Draw ``t`` of row ``i`` is the keyed stream's uniform at counter
+    (``seeds[i]``, ``t``) under its own tag, so a device's draws depend on
+    its protocol seed alone (not on which devices share the call, nor on
+    the device), at O(n) per call.  (The reference draws
+    ``default_rng(seed)`` per device; the parity tests substitute its
+    draws here.)"""
     seeds = np.asarray(seeds, dtype=np.int64)
     if seeds.min() < 0:
         raise ValueError("protocol seeds must be non-negative")
-    table = torch.rand((int(seeds.max()) + 1, n_trials), generator=gen,
-                       dtype=F64)
-    return table[torch.as_tensor(seeds)]
+    keyed_rng.check_index("protocol seed", int(seeds.max()))
+    dev = resolve_device(device)
+    rows = torch.as_tensor(seeds, device=dev)[:, None]
+    return keyed_rng.uniform(0, rows,
+                             torch.arange(n_trials, device=dev)[None, :],
+                             keyed_rng.TAG_TRIAL)
 
 
 def measure_naive_batch(bank: "SensorBank",
@@ -382,8 +522,7 @@ def measure_good_practice_batch(
         calibs = {p.name: calib for p in bank.profiles}
     else:
         calibs = calib
-    u = _trial_starts(seeds, cfg.n_trials,
-                      torch.Generator().manual_seed(0)).to(dev)
+    u = _trial_starts(seeds, cfg.n_trials, dev)
 
     trials = torch.zeros((n, cfg.n_trials), dtype=F64, device=dev)
     reps_out = np.zeros(n, dtype=np.int64)

@@ -9,10 +9,11 @@ device.  They serve three roles:
   ``query_slots``, ``poll_counts``, ``snapshot_energy_at``,
   ``err_moments``) run as they are, on the card or the CPU: the JAX
   package had no TPU kernel for them either;
-* ``stream_ingest``, ``stream_ingest_grid`` and ``log_filter`` are the
-  plain versions of the CUDA kernels in :mod:`repro_torch.kernels`: the
-  kernel wrappers run them for CPU tensors, and ``chip_smoke.py`` holds
-  each kernel against them on the card.
+* ``stream_ingest``, ``stream_ingest_grid``, ``log_filter`` and
+  ``step_integrate`` are the plain versions of the CUDA kernels in
+  :mod:`repro_torch.kernels`: the kernel wrappers run them for CPU
+  tensors, and ``chip_smoke.py`` holds each kernel against them on the
+  card.
 
 ``np.bincount`` becomes ``index_add_``, ``np.maximum.accumulate``
 becomes ``torch.cummax`` and ``take_along_axis`` becomes ``gather``.
@@ -290,6 +291,46 @@ def err_moments(e: torch.Tensor) -> Tuple[int, float, float, float, float]:
     out = torch.stack([mean, ((e - mean) ** 2).sum(), ae.mean(), ae.max()])
     m, m2, ma, mx = out.tolist()
     return n, m, m2, ma, mx
+
+
+def step_integrate(ts: torch.Tensor, vals: torch.Tensor, t0: torch.Tensor,
+                   t1: torch.Tensor, trapezoid: bool = False) -> torch.Tensor:
+    """Per-row integral [N] of a held sample series over ``[t0_i, t1_i]``:
+    the plain version of the CUDA ``step_integrate`` kernel, formula for
+    formula ``numpy_backend.step_integrate``.
+
+    ``ts`` [N, M] holds non-decreasing sample times per row, unused
+    trailing slots ``+inf``; ``vals`` [N, M] the readings.  Samples with
+    ``t0 <= ts <= t1`` contribute; each holds until the next one and the
+    last selected one holds to ``t1``.  ``trapezoid`` takes the mean of an
+    interval's two readings instead (the final partial step stays a
+    rectangle).  Rows that select no sample, and every row when
+    ``M == 0``, give 0.  The padding mask is applied to the operands, so
+    no ``inf - inf`` is evaluated.
+    """
+    n, m = ts.shape
+    if m == 0:
+        return torch.zeros(n, dtype=F64, device=ts.device)
+    j0 = searchsorted_rows(ts, t0[:, None], "left")[:, 0]
+    j1 = searchsorted_rows(ts, t1[:, None], "right")[:, 0] - 1
+
+    nxt_finite = torch.isfinite(ts[:, 1:])
+    dt = (torch.where(nxt_finite, ts[:, 1:], 0.0)
+          - torch.where(nxt_finite, ts[:, :-1], 0.0))
+    if trapezoid:
+        dens = 0.5 * (vals[:, :-1] + torch.where(nxt_finite, vals[:, 1:], 0.0))
+    else:
+        dens = vals[:, :-1]
+    cum = torch.cat([torch.zeros((n, 1), dtype=F64, device=ts.device),
+                     torch.cumsum(dens * dt, dim=1)], dim=1)
+
+    j0c = torch.clamp(j0, 0, m - 1)[:, None]
+    j1c = torch.clamp(j1, 0, m - 1)[:, None]
+    core = (torch.gather(cum, 1, j1c) - torch.gather(cum, 1, j0c))[:, 0]
+    tail = (torch.gather(vals, 1, j1c)[:, 0]
+            * (t1 - torch.gather(ts, 1, j1c)[:, 0]))
+    nonempty = (j1 >= j0) & (j0 < m)
+    return torch.where(nonempty, core + tail, 0.0)
 
 
 def _empty(cls, n_rows: int, sample_shape: tuple, device: torch.device):

@@ -3,7 +3,9 @@
 * :mod:`.stream_ingest` — the monitor's general slab kernel;
 * :mod:`.stream_ingest_grid` — its rectangular clean-slab fast path;
 * :mod:`.log_filter` — the Kepler/Maxwell sensor filter of the fleet
-  audit's sensor simulation.
+  audit's sensor simulation;
+* :mod:`.step_integrate` — the §5 protocol's integral of a polled
+  reading series over a window.
 
 Each wrapper runs the plain PyTorch version
 (:mod:`repro_torch.engine_backend.torch_backend`) for CPU tensors and

@@ -27,6 +27,7 @@ SOURCES = {
     "stream_ingest": "stream_ingest.cu",
     "stream_ingest_grid": "stream_ingest_grid.cu",
     "log_filter": "log_filter.cu",
+    "step_integrate": "step_integrate.cu",
 }
 
 # -fmad=false keeps every product separately rounded, as the plain

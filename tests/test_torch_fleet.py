@@ -180,15 +180,27 @@ def test_port_noise_and_hidden_parameters_are_seeded_and_in_tolerance():
 
 def test_non_boxcar_profiles_name_the_later_slice():
     """The logarithmic and estimation transients came with the fleet-audit
-    slice; the module-scope host timeline, still to come, names its
-    slice."""
+    slice; the module-scope host timeline came with the scalar §5 slice:
+    it adds the host's draw to the module-scope rows only, and per-device
+    shifts with it still raise, as in the reference."""
     for name in ("kepler", "fermi2"):
         bank = SensorBank.from_catalog([name], device=CPU)
         bank.attach(_port_timeline(_timeline()))
         assert bool(torch.isfinite(bank._values).all())
-    with pytest.raises(NotImplementedError, match="scalar §5 slice"):
-        SensorBank.from_catalog(["gh200_module_instant"], device=CPU,
-                                host_timeline=_port_timeline(_timeline()))
+    names = ["gh200_module_instant", "a100"]
+    host = gt.from_segments([(4.0, 55.0)], idle_w=40.0)
+    plain = SensorBank.from_catalog(names, seed=3, device=CPU)
+    with_host = SensorBank.from_catalog(names, seed=3, device=CPU,
+                                        host_timeline=host)
+    for b in (plain, with_host):
+        b.attach(_port_timeline(_timeline()), t_end=2.0)
+    tq = torch.linspace(0.5, 1.5, 11, dtype=torch.float64)
+    d = with_host.query(tq) - plain.query(tq)
+    assert torch.equal(d[1], torch.zeros(11, dtype=torch.float64))
+    assert float((d[0] / with_host.true_gain[0] - 55.0).abs().max()) < 0.05
+    with pytest.raises(NotImplementedError, match="module-scope host"):
+        with_host.attach(_port_timeline(_timeline()),
+                         shifts=torch.zeros(2, dtype=torch.float64))
 
 
 def test_timeline_bank_integral_matches_reference():
