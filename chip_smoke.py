@@ -36,7 +36,10 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    ``measure_naive`` and ``measure_good_practice`` on the card (the main
    path, whose ``step_integrate`` launches are counted) and on the CPU,
    which must agree per run; 8 devices of the audit's kinds, batched
-   protocols against ``scalar_reference(i)``; ``compare_protocols`` on
+   protocols against ``scalar_reference(i)`` on the card and on the CPU,
+   which must agree, and ``log_filter`` held against its plain version at
+   the tick shapes the Kepler/Maxwell scalar sensors gave it (launches of
+   both kernels counted over that run alone); ``compare_protocols`` on
    the a100 burst over 5 seeds, §5 beating naive.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
@@ -350,7 +353,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.append(audit(dev))
     torch.cuda.empty_cache()
-    results.append(scalar_path(dev))
+    step, lf_6c = scalar_path(dev)
+    results[-1].update(lf_6c)
+    results.append(step)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -892,13 +897,46 @@ def energy_grid(dev):
     return out
 
 
-def scalar_path(dev):
-    """Phase 6; returns the step_integrate kernel's record."""
+def batch_vs_scalar(dev):
+    """Phase 6c's protocols on ``dev``: for 8 devices of the audit's kinds
+    (Kepler and Maxwell among them, so the scalar sensors run
+    ``log_filter``), the batched naive and §5 energies and the scalar ones
+    on ``bank.scalar_reference(i)`` with the same protocol seed."""
     from repro_torch.core import load as loads
     from repro_torch.core import meter as pm
     from repro_torch.core import profiles
-    from repro_torch.core.calibrate import CalibrationRecord, nominal_record
+    from repro_torch.core.calibrate import nominal_record
     from repro_torch.core.fleet_engine import SensorBank
+    names = list(AUDIT_KINDS) + ["gh200_module_instant", "rtx3090_530"]
+    bank = SensorBank.from_catalog(names, seed=SEED + 5, device=dev)
+    wl = pm.Workload("audit_burst", loads.multi_phase_workload(
+        [(0.130, 215.0), (0.070, 165.0)]))
+    calibs = {n: nominal_record("fleet", profiles.get(n)) for n in names}
+    cfg = pm.GoodPracticeConfig(n_trials=AUDIT_TRIALS)
+    naive_b = pm.measure_naive_batch(bank, wl, host_baseline_w=25.0)
+    gp_b = pm.measure_good_practice_batch(bank, wl, calibs, cfg,
+                                          host_baseline_w=25.0)
+    out = dict(naive_batch=[float(x) for x in naive_b],
+               gp_batch=[float(x) for x in gp_b.joules_per_rep],
+               naive_scalar=[], gp_scalar=[])
+    for i, name in enumerate(names):
+        base = 25.0 if bool(bank.module_scope[i]) else None
+        out["naive_scalar"].append(pm.measure_naive(
+            bank.scalar_reference(i), wl, host_baseline_w=base))
+        out["gp_scalar"].append(pm.measure_good_practice(
+            bank.scalar_reference(i), wl, calibs[name], cfg,
+            host_baseline_w=base, seed=i).joules_per_rep)
+    return out
+
+
+def scalar_path(dev):
+    """Phase 6; returns the step_integrate kernel's record and what phase
+    6c adds to the log_filter kernel's."""
+    from repro_torch.core import fleet_engine as fe
+    from repro_torch.core import load as loads
+    from repro_torch.core import meter as pm
+    from repro_torch.core import profiles
+    from repro_torch.core.calibrate import CalibrationRecord
     from repro_torch.core.sensor import OnboardSensor
     from repro_torch.engine_backend import torch_backend as tb
     from repro_torch.kernels import _build
@@ -935,7 +973,6 @@ def scalar_path(dev):
 
     # -- 6b. the main path: the Figs. 15-17 grid on the card and the CPU ------
     step_integrate.launches = 0
-    log_filter.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card = energy_grid(dev)
@@ -962,33 +999,47 @@ def scalar_path(dev):
             log(f"  {case}/{load_name}: mean |err| naive {np.mean(ne):.2%}, "
                 f"good practice {np.mean(ge):.2%}")
 
-    # -- 6c. batched protocols against scalar_reference(i) --------------------
-    names = list(AUDIT_KINDS) + ["gh200_module_instant", "rtx3090_530"]
-    bank = SensorBank.from_catalog(names, seed=SEED + 5, device=dev)
-    wl = pm.Workload("audit_burst", loads.multi_phase_workload(
-        [(0.130, 215.0), (0.070, 165.0)]))
-    calibs = {n: nominal_record("fleet", profiles.get(n)) for n in names}
-    cfg = pm.GoodPracticeConfig(n_trials=AUDIT_TRIALS)
-    naive_b = pm.measure_naive_batch(bank, wl, host_baseline_w=25.0)
-    gp_b = pm.measure_good_practice_batch(bank, wl, calibs, cfg,
-                                          host_baseline_w=25.0)
+    # -- 6c. batched protocols against scalar_reference(i), card and CPU -----
+    lf_args = []
+
+    def recording_lf(tl, ticks, tau):
+        lf_args.append((tl, ticks, tau))
+        return log_filter(tl, ticks, tau)
+
+    fe.log_filter = recording_lf
+    try:
+        step_integrate.launches = 0
+        log_filter.launches = 0
+        card = batch_vs_scalar(dev)
+        torch.cuda.synchronize()
+        step_6c, lf_6c = step_integrate.launches, log_filter.launches
+    finally:
+        fe.log_filter = log_filter
+    check(lf_6c > 0, "batched vs scalar ran no log_filter kernel")
+    check(step_6c > 0, "batched vs scalar ran no step_integrate kernel")
+    cpu = batch_vs_scalar(torch.device("cpu"))
+    worst = 0.0
+    for key in card:
+        for got, want in zip(card[key], cpu[key]):
+            rel = abs(got - want) / abs(want)
+            worst = max(worst, rel)
+            check(rel <= 1e-12, f"batched vs scalar, {key}: card {got!r} vs "
+                  f"CPU {want!r}")
     d_naive = d_gp = 0.0
-    for i, name in enumerate(names):
-        base = 25.0 if bool(bank.module_scope[i]) else None
-        e = pm.measure_naive(bank.scalar_reference(i), wl,
-                             host_baseline_w=base)
-        g = pm.measure_good_practice(bank.scalar_reference(i), wl,
-                                     calibs[name], cfg, host_baseline_w=base,
-                                     seed=i).joules_per_rep
-        d_naive = max(d_naive, abs(float(naive_b[i]) - e))
-        d_gp = max(d_gp, abs(float(gp_b.joules_per_rep[i]) - g))
-        check(abs(float(naive_b[i]) - e) <= 1e-9,
-              f"{name}: batched naive {float(naive_b[i])!r} vs scalar {e!r}")
-        check(abs(float(gp_b.joules_per_rep[i]) - g) <= 1e-3,
-              f"{name}: batched §5 {float(gp_b.joules_per_rep[i])!r} vs "
-              f"scalar {g!r}")
-    log(f"8 devices, batched vs scalar_reference(i): naive within "
-        f"{d_naive:.3e} J, §5 within {d_gp:.3e} J")
+    for i in range(len(card["naive_batch"])):
+        d_naive = max(d_naive, abs(card["naive_batch"][i]
+                                   - card["naive_scalar"][i]))
+        d_gp = max(d_gp, abs(card["gp_batch"][i] - card["gp_scalar"][i]))
+    check(d_naive <= 1e-9, f"batched naive off scalar_reference by {d_naive}")
+    check(d_gp <= 1e-3, f"batched §5 off scalar_reference by {d_gp}")
+    lf_err = max(log_filter_err(*a) for a in lf_args)
+    lf_shapes = sorted({tuple(a[1].shape) for a in lf_args})
+    log(f"{len(card['naive_batch'])} devices, batched vs scalar_reference(i) "
+        f"on the card: naive within {d_naive:.3e} J, §5 within {d_gp:.3e} J; "
+        f"card matches the CPU plain path (largest relative difference "
+        f"{worst:.3e}); {lf_6c} log_filter and {step_6c} step_integrate "
+        f"launches; log_filter vs plain at that path's tick shapes "
+        f"{[list(x) for x in lf_shapes]}: max_abs_err={lf_err:.3e}")
 
     # -- 6d. compare_protocols on the a100 burst ------------------------------
     naive_e, gp_e = [], []
@@ -1043,8 +1094,9 @@ def scalar_path(dev):
         shape=list(trial[0].shape), bytes=need, bytes_rows=full,
         ms_wide=ms_wide, plain_ms_wide=plain_wide, bound_ms_wide=b_wide,
         bytes_wide=need_w, bytes_rows_wide=full_w,
-        shape_wide=list(STEP_WIDE), grid_s=secs,
-        log_filter_launches_scalar=log_filter.launches)
+        shape_wide=list(STEP_WIDE), grid_s=secs, launches_6c=step_6c), dict(
+        launches_6c=lf_6c, max_abs_err_6c=lf_err,
+        shapes_6c=[list(x) for x in lf_shapes])
 
 
 if __name__ == "__main__":

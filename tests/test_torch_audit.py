@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_draws  # noqa: E402
 from test_engine_backend import DEGENERATE, _per_device_timelines  # noqa: E402
 
 from repro.core import fleet_engine as rfe  # noqa: E402
@@ -31,7 +32,6 @@ from repro.core import profiles as rprofiles  # noqa: E402
 from repro.core.calibrate import nominal_record as r_nominal  # noqa: E402
 from repro.core.engine_backend import numpy_backend as nb  # noqa: E402
 from repro.core.engine_backend.pytrees import PollGrid as RGrid  # noqa: E402
-from repro.core.engine_backend.vecrng import VecStreams  # noqa: E402
 from repro.core.ground_truth import ActivityTimeline as RTimeline  # noqa: E402
 from repro.core.ground_truth import TimelineBank as RTBank  # noqa: E402
 from repro_torch import convert  # noqa: E402
@@ -106,19 +106,8 @@ def reference_draws(monkeypatch):
     offsets: ``reference_draws(ref_bank)`` routes every port bank's noise
     to the rows of ``ref_bank`` it holds."""
     holder = {}
-
-    def noise(self, m, first, count):
-        sub = holder["ref"].subset(self._rows)
-        return torch.as_tensor(sub._noise(m, _np(first), _np(count)),
-                               device=self.device)
-
-    def starts(seeds, n_trials, device=CPU):
-        seeds = np.asarray(seeds)
-        return torch.as_tensor(VecStreams(seeds).uniform_block(
-            0.0, 1.0, np.full(len(seeds), n_trials)), device=device)
-
-    monkeypatch.setattr(fe.SensorBank, "_noise", noise)
-    monkeypatch.setattr(pm, "_trial_starts", starts)
+    _torch_draws.substitute(monkeypatch,
+                            lambda bank: holder["ref"].subset(bank._rows))
 
     def use(ref_bank):
         holder["ref"] = ref_bank

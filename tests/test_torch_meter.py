@@ -25,13 +25,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_draws  # noqa: E402
 from repro.core import fleet_engine as rfe  # noqa: E402
 from repro.core import load as rload  # noqa: E402
 from repro.core import meter as rmeter  # noqa: E402
 from repro.core import profiles as rprofiles  # noqa: E402
 from repro.core import sensor as rsensor  # noqa: E402
 from repro.core.calibrate import CalibrationRecord as RCalib  # noqa: E402
-from repro.core.engine_backend.vecrng import VecStreams  # noqa: E402
 from repro.core.ground_truth import ActivityTimeline as RTimeline  # noqa: E402
 from repro.core.ground_truth import GroundTruthMeter as RMeter  # noqa: E402
 from repro.core.ground_truth import TimelineBank as RTBank  # noqa: E402
@@ -86,26 +86,11 @@ def reference_draws(monkeypatch):
     reference sensor of seed ``s`` is the port bank of seed ``s``, row 0),
     the §5 start offsets its ``default_rng(seed)`` uniforms, the meter's
     ADC noise its ``default_rng(seed)`` normals."""
-    def noise(self, m, first, count):
-        rb = rfe.SensorBank([rsensor.SensorProfile(**dataclasses.asdict(p))
-                             for p in self.profiles],
-                            seeds=self.seed + self._rows)
-        return torch.as_tensor(rb._noise(m, _np(first), _np(count)),
-                               device=self.device)
-
-    def starts(seeds, n_trials, device=CPU):
-        seeds = np.asarray(seeds)
-        return torch.as_tensor(VecStreams(seeds).uniform_block(
-            0.0, 1.0, np.full(len(seeds), n_trials)), device=device)
-
-    def adc(keys, m):
-        return torch.stack([torch.as_tensor(
-            np.random.default_rng(int(k)).standard_normal(m))
-            for k in keys.cpu()]).to(keys.device)
-
-    monkeypatch.setattr(fe.SensorBank, "_noise", noise)
-    monkeypatch.setattr(pm, "_trial_starts", starts)
-    monkeypatch.setattr(gt, "_adc_noise", adc)
+    def ref_bank(bank):
+        return rfe.SensorBank([rsensor.SensorProfile(**dataclasses.asdict(p))
+                               for p in bank.profiles],
+                              seeds=bank.seed + bank._rows)
+    _torch_draws.substitute(monkeypatch, ref_bank, adc=True)
 
 
 def _close(got, want, rtol=RTOL):
