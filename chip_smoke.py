@@ -5,7 +5,7 @@
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the checkout's ``src/``.  Phases, each of which fails the run:
 
-1. print the card's name and power limit, build the four CUDA kernels
+1. print the card's name and power limit, build the five CUDA kernels
    (one ``nvcc`` each, started together) and print their registers and
    spills;
 2. hold the monitor's two kernels against their plain PyTorch versions on
@@ -40,7 +40,23 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    which must agree, and ``log_filter`` held against its plain version at
    the tick shapes the Kepler/Maxwell scalar sensors gave it (launches of
    both kernels counted over that run alone); ``compare_protocols`` on
-   the a100 burst over 5 seeds, §5 beating naive.
+   the a100 burst over 5 seeds, §5 beating naive;
+7. the paper's load and its §4 black-box characterisation: ``fma_chain``
+   against its plain version bitwise (the reference's cases, adversarial
+   values, block_rows 128/256/512, and x [SM count × 256, 128] at niter
+   4096); Fig. 5 on the card (time against niter 256-4096, R² > 0.97; the
+   time at fraction 1.0 at most 1.5× that at 0.2, so one slot is one SM);
+   the card's own nvidia-smi polled every 1 ms under an 8 s ``fma_chain``
+   square wave and 2 s plateaus at each fraction (information: the poll
+   interval achieved, the update period the port's
+   ``microbench.complete_run_durations`` gives, the Fig. 8 plateaus); then
+   ``characterise`` of simulated a100 (with a ``GroundTruthMeter``), v100
+   and rtx3090_average sensors, the Kepler transient (``log_filter``) and
+   four update periods on the card and on the CPU, which must agree and
+   meet the reference tests' bars; a ``CalibrationStore`` record written
+   and reloaded, and a calibrated §5 measurement (``step_integrate``) no
+   worse than an uncalibrated one.  Launches: ``fma_chain`` over 7b-7c,
+   ``log_filter`` over 7d, ``step_integrate`` over 7e.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -53,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+from datetime import datetime
 
 import numpy as np
 import torch
@@ -92,6 +109,7 @@ REPLACES = {
     "log_filter": "src/repro/core/engine_backend/pallas_backend.py:497",
     "step_integrate":
         "src/repro/core/engine_backend/pallas_backend.py:424",
+    "fma_chain": "src/repro/kernels/fma_chain.py:26",
 }
 #: step_integrate's float64 operations per selected sample (mask select,
 #: sub, mul, add; the trapezoid rule's add and half counted too)
@@ -103,6 +121,25 @@ ENERGY_CASES = (("case1_100_100", "rtx3090_instant", 0.100, 0.25),
                 ("case3_25_100", "a100", 0.025, 0.25))
 ENERGY_LOADS = (("short", 0.025), ("medium", 0.100), ("long", 0.800))
 ENERGY_SEEDS = 4
+#: H100 SXM FP32 (non-tensor) peak, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12
+#: the paper's load (Fig. 5, benchmarks/load_linearity.py's iteration
+#: counts): x [SM count * 256, 128] float32, one grid slot per SM
+FMA_BLOCK_ROWS = 256
+FMA_NITERS = (256, 512, 1024, 2048, 4096)
+FMA_FRACTIONS = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+FMA_REFERENCE_CASES = ((256, 3, 1.0), (512, 10, 0.5), (1024, 1, 0.25),
+                       (256, 0, 1.0))
+FMA_ADVERSARIAL = (1e-8, -1e-8, 3e-39, -3e-39, 2e38, -2e38, math.inf,
+                   -math.inf, math.nan, 1.0, -1.0)
+#: 7c: an 8 s square wave of 10 ms on, 10 ms asleep, then 2 s plateaus
+SMI_WAVE_S = 8.0
+SMI_HALF_S = 0.010
+SMI_PLATEAU_S = 2.0
+#: 7d: estimate_update_period's sensor classes and their periods
+#: (tests/test_microbench.py::test_update_period_catalog)
+CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
+                ("rtx3090_instant", 0.100))
 
 
 def check(cond, msg):
@@ -356,6 +393,11 @@ def main() -> int:
     step, lf_6c = scalar_path(dev)
     results[-1].update(lf_6c)
     results.append(step)
+    torch.cuda.empty_cache()
+    fma, lf_7d, step_7e = paper_load(dev)
+    results[-2].update(lf_7d)
+    results[-1].update(step_7e)
+    results.append(fma)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1097,6 +1139,419 @@ def scalar_path(dev):
         shape_wide=list(STEP_WIDE), grid_s=secs, launches_6c=step_6c), dict(
         launches_6c=lf_6c, max_abs_err_6c=lf_err,
         shapes_6c=[list(x) for x in lf_shapes])
+
+
+# ---------------------------------------------------------------------------
+# the paper's load and the black-box characterisation
+# ---------------------------------------------------------------------------
+def fma_cases(dev):
+    """fma_chain inputs on ``dev``: the reference's four cases
+    (tests/test_kernels.py), then inputs holding the values on which the
+    chain is not the identity (in active and idle slots), at block_rows
+    256, 128 and 512: (x, niter, fraction, block_rows)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+
+    def x(rows):
+        v = torch.randn((rows, 128), generator=gen, device=dev)
+        for r in range(0, rows, 128):
+            v[r, :len(FMA_ADVERSARIAL)] = torch.tensor(FMA_ADVERSARIAL)
+        return v
+    return ([(torch.randn((rows, 128), generator=gen, device=dev), niter,
+              frac, 256) for rows, niter, frac in FMA_REFERENCE_CASES]
+            + [(x(1024), 5, 0.5, 256), (x(512), 7, 0.5, 128),
+               (x(1024), 5, 0.6, 512)])
+
+
+def fma_err(x, niter, frac, block_rows):
+    """The kernel against its plain version on the same card input,
+    bitwise, a nan meeting a nan of any bits; returns the largest absolute
+    difference of the finite outputs (0.0 when bitwise equal)."""
+    from repro_torch.engine_backend import torch_backend as tb
+    from repro_torch.kernels.fma_chain import fma_chain
+    got = fma_chain(x, niter, frac, block_rows)
+    want = tb.fma_chain(x, niter, frac, block_rows)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    same = torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    check(same, f"fma_chain at {list(x.shape)}, niter {niter}, fraction "
+          f"{frac}, block_rows {block_rows}: not bitwise equal to the plain "
+          f"version (largest finite difference {err:.3e})")
+    return err
+
+
+def fma_chain_sass_loop():
+    """The innermost loop of the built fma_chain kernel that issues FFMA,
+    from ``cuobjdump -sass``: (instructions, FFMA count, the others)."""
+    import re
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("fma_chain"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    ins = [(int(m.group(1), 16), m.group(2).strip())
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            n_ffma = sum(t.startswith("FFMA") for t in body)
+            if n_ffma:
+                loops.append((len(body), n_ffma,
+                              [t for t in body if not t.startswith("FFMA")]))
+    check(bool(loops), "fma_chain: no loop of FFMA in the SASS")
+    return min(loops)
+
+
+def smi_fields():
+    """The columns 7c polls: timestamp, power.draw and, where this
+    nvidia-smi lists it, power.draw.instant."""
+    helptext = subprocess.run(["nvidia-smi", "--help-query-gpu"],
+                              capture_output=True, text=True, timeout=60,
+                              check=True).stdout
+    return ["timestamp", "power.draw"] + (
+        ["power.draw.instant"] if '"power.draw.instant"' in helptext else [])
+
+
+def smi_reading(text):
+    """A number of nvidia-smi's csv (nounits), nan for "[N/A]" and the
+    like."""
+    text = text.strip()
+    return math.nan if text.startswith("[") else float(text)
+
+
+def smi_parse(path, fields):
+    """(epoch seconds [K], {field: watts [K]}) of the polled csv."""
+    ts, cols = [], {f: [] for f in fields[1:]}
+    with open(path) as f:
+        for line in f:
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) != len(fields):
+                continue
+            ts.append(datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
+                      .timestamp())
+            for name, text in zip(fields[1:], parts[1:]):
+                cols[name].append(smi_reading(text))
+    return np.asarray(ts), {k: np.asarray(v) for k, v in cols.items()}
+
+
+def smi_load(dev, x, niter_10ms):
+    """7c: nvidia-smi polls the card every 1 ms while the host drives an
+    8 s square wave of fma_chain (10 ms on, 10 ms asleep), then 2 s
+    plateaus at each fraction of 7b (asleep at 0).  Returns what it
+    read."""
+    from repro_torch.core import microbench as mb
+    from repro_torch.kernels.fma_chain import fma_chain
+    fields = smi_fields()
+    path = os.path.join(ROOT, "build", "nvidia_smi_power.csv")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as out:
+        proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+             "--format=csv,noheader,nounits", "-lms", "1"],
+            stdout=out, stderr=subprocess.PIPE, text=True)
+        try:
+            time.sleep(1.0)
+            wave = [time.time()]
+            while time.time() - wave[0] < SMI_WAVE_S:
+                fma_chain(x, niter_10ms)
+                torch.cuda.synchronize()
+                time.sleep(SMI_HALF_S)
+            wave.append(time.time())
+            marks = []
+            for frac in FMA_FRACTIONS:
+                t0 = time.time()
+                while time.time() - t0 < SMI_PLATEAU_S:
+                    if frac == 0.0:
+                        time.sleep(SMI_HALF_S)
+                    else:
+                        fma_chain(x, niter_10ms, frac)
+                        torch.cuda.synchronize()
+                marks.append((frac, t0, time.time()))
+            time.sleep(0.2)
+            rc = proc.poll()
+            err = proc.stderr.read() if rc is not None else ""
+            check(rc is None, f"nvidia-smi exited with {rc} while polling: "
+                  f"{err.strip()}")
+        finally:
+            if proc.poll() is None:
+                proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stderr.close()
+    ts, cols = smi_parse(path, fields)
+    check(len(ts) >= 100, f"nvidia-smi gave {len(ts)} readings in "
+          f"{SMI_WAVE_S + len(FMA_FRACTIONS) * SMI_PLATEAU_S:.0f} s")
+    check(bool(np.isfinite(cols["power.draw"]).all()),
+          "nvidia-smi power.draw is not a number")
+    interval_ms = float(np.median(np.diff(ts))) * 1e3
+    in_wave = (ts >= wave[0]) & (ts <= wave[1])
+    out = dict(fields=fields, readings=int(len(ts)),
+               poll_interval_ms=interval_ms, update_period_s={},
+               complete_runs={}, plateaus_w={})
+    for name, vals in cols.items():
+        if not np.isfinite(vals).all():
+            continue
+        runs = mb.complete_run_durations(ts[in_wave], vals[in_wave]).numpy()
+        out["complete_runs"][name] = int(runs.size)
+        out["update_period_s"][name] = (float(np.median(runs))
+                                        if runs.size >= 3 else math.nan)
+        out["plateaus_w"][name] = [
+            float(np.mean(vals[(ts >= t0 + 0.5 * (t1 - t0)) & (ts <= t1)]))
+            for _, t0, t1 in marks]
+    return out
+
+
+def characterisation(dev):
+    """7d's characterisations on ``dev``: {name: result} for a100 (with a
+    GroundTruthMeter), v100 and rtx3090_average through ``characterise``,
+    kepler through ``measure_transient``, and the update period of four
+    sensor classes; plus each sensor's hidden gain."""
+    from repro_torch.core import microbench as mb
+    from repro_torch.core import profiles
+    from repro_torch.core.ground_truth import GroundTruthMeter
+    from repro_torch.core.sensor import OnboardSensor
+
+    def sensor(name, seed):
+        return OnboardSensor(profiles.get(name), seed=seed, device=dev)
+    a100 = sensor("a100", 9)
+    out = {"a100": mb.characterise(a100, GroundTruthMeter(seed=2, device=dev),
+                                   boxcar_reps=6),
+           "v100": mb.characterise(sensor("v100", 9), boxcar_reps=6),
+           "rtx3090_average": mb.characterise(sensor("rtx3090_average", 3),
+                                              boxcar_reps=6),
+           "kepler": mb.measure_transient(sensor("kepler", 3), 0.015),
+           "a100_true_gain": a100.true_gain}
+    for name, _ in CHAR_PERIODS:
+        out[f"period_{name}"] = mb.estimate_update_period(sensor(name, 7))
+    return out
+
+
+def char_numbers(res):
+    """Every number of a 7d result, flattened in a fixed order, and the
+    transient kinds."""
+    nums, kinds = [], []
+    for key in sorted(res):
+        r = res[key]
+        if isinstance(r, float):
+            nums.append(r)
+            continue
+        tr = getattr(r, "transient", r)
+        kinds.append(tr.kind)
+        nums += [tr.rise_time_s, tr.delay_s, tr.settle_w]
+        if tr is not r:
+            nums += [r.update_period_s, r.sampled_fraction] + [
+                math.nan if v is None else v
+                for v in (r.window_s, r.gain, r.offset_w, r.r2)]
+    return nums, kinds
+
+
+def paper_load(dev):
+    """Phase 7; returns the fma_chain kernel's record and what 7d adds to
+    log_filter's and 7e to step_integrate's."""
+    import tempfile
+    from repro_torch.core import load as loads
+    from repro_torch.core import meter as pm
+    from repro_torch.core import microbench as mb
+    from repro_torch.core import profiles
+    from repro_torch.core.calibrate import CalibrationRecord, CalibrationStore
+    from repro_torch.core.ground_truth import GroundTruthMeter
+    from repro_torch.core.sensor import OnboardSensor
+    from repro_torch.engine_backend import torch_backend as tb
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fma_chain import fma_chain
+    from repro_torch.kernels.log_filter import log_filter
+    from repro_torch.kernels.step_integrate import step_integrate
+
+    # -- 7a. the kernel against its plain version, bitwise ---------------------
+    n_ins, n_ffma, others = fma_chain_sass_loop()
+    log(f"fma_chain SASS: the niter loop is {n_ins} instructions, {n_ffma} "
+        f"FFMA ({n_ffma / 64:g} iteration(s) of 2 FMAs on 32 chains) and "
+        f"{others}")
+    cases = fma_cases(dev)
+    small_err = max(fma_err(*c) for c in cases)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    x = torch.randn((sms * FMA_BLOCK_ROWS, 128), generator=gen, device=dev)
+    err = max(fma_err(x, FMA_NITERS[-1], f, FMA_BLOCK_ROWS)
+              for f in (1.0, 0.2))
+    log(f"fma_chain vs plain, {len(cases)} small cases (adversarial values, "
+        f"block_rows 128/256/512) and [{sms * FMA_BLOCK_ROWS}, 128] at niter "
+        f"{FMA_NITERS[-1]}, fractions 1.0 and 0.2: bitwise equal")
+
+    # -- 7b. Fig. 5 on the card: time linear in niter, one slot per SM --------
+    fma_chain.launches = 0
+    by_niter = [time_ms(lambda n=n: fma_chain(x, n), 20) for n in FMA_NITERS]
+    slope, intercept = np.polyfit(FMA_NITERS, by_niter, 1)
+    pred = np.polyval([slope, intercept], FMA_NITERS)
+    r2 = 1.0 - (np.sum((np.asarray(by_niter) - pred) ** 2)
+                / np.sum((np.asarray(by_niter) - np.mean(by_niter)) ** 2))
+    log("fma_chain, Fig. 5: " + " ".join(
+        f"niter {n}: {t:.4f} ms" for n, t in zip(FMA_NITERS, by_niter))
+        + f"; slope {slope * 1e3:.4f} us/iteration, intercept "
+        f"{intercept:.4f} ms, R^2 {r2:.6f}")
+    check(r2 > 0.97 and slope > 0, f"fma_chain time not linear in niter "
+          f"(R^2 {r2:.4f}, slope {slope:.3e})")
+    niter = FMA_NITERS[-1]
+    by_frac = [time_ms(lambda f=f: fma_chain(x, niter, f), 10)
+               for f in FMA_FRACTIONS]
+    log(f"fma_chain at niter {niter} by fraction: " + " ".join(
+        f"{f}: {t:.4f} ms" for f, t in zip(FMA_FRACTIONS, by_frac)))
+    t_full, t_fifth = by_frac[FMA_FRACTIONS.index(1.0)], by_frac[
+        FMA_FRACTIONS.index(0.2)]
+    check(t_full <= 1.5 * t_fifth, f"fma_chain at fraction 1.0 takes "
+          f"{t_full:.4f} ms, over 1.5x its {t_fifth:.4f} ms at 0.2: slots "
+          f"are not one per SM")
+    ms = by_niter[-1]
+    launches_7b = fma_chain.launches
+    plain_ms = time_ms(lambda: tb.fma_chain(x, niter), 1)
+    n_rows = x.shape[0]
+    flops = 4 * niter * 128 * n_rows
+    ops_ms = flops / FP32_OPS_PER_S * 1e3
+    bytes_ms = 2 * n_rows * 128 * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"fma_chain at [{n_rows}, 128], niter {niter}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+        f"({flops:.3e} FP32 FLOPs; bytes {bytes_ms:.4f} ms), "
+        f"{ops_ms / ms:.1%} of the FP32 peak")
+
+    # -- 7c. the card's own nvidia-smi under the load (information) ----------
+    niter_10ms = max(1, int(round((SMI_HALF_S * 1e3 - intercept) / slope)))
+    launches_0 = fma_chain.launches
+    smi = smi_load(dev, x, niter_10ms)
+    launches_7c = fma_chain.launches - launches_0
+    launches = fma_chain.launches
+    check(launches_7c > 0, "the nvidia-smi load ran no fma_chain kernel")
+    log(f"nvidia-smi under fma_chain (niter {niter_10ms} ~ 10 ms): "
+        f"{smi['readings']} readings of {smi['fields'][1:]}, poll interval "
+        f"{smi['poll_interval_ms']:.3f} ms; update period (median complete "
+        f"run, 8 s square wave): " + " ".join(
+            f"{k} {v * 1e3:.1f} ms ({smi['complete_runs'][k]} runs)"
+            for k, v in smi["update_period_s"].items()))
+    for k, watts in smi["plateaus_w"].items():
+        log(f"  Fig. 8 plateaus, mean {k} over the second half of each: " + " ".join(
+            f"{f}: {w:.2f} W" for f, w in zip(FMA_FRACTIONS, watts)))
+
+    # -- 7d. characterise on the card and on the CPU --------------------------
+    log_filter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = characterisation(dev)
+    torch.cuda.synchronize()
+    char_s = time.perf_counter() - t0
+    lf_7d = log_filter.launches
+    check(lf_7d > 0, "the characterisation ran no log_filter kernel")
+    t0 = time.perf_counter()
+    cpu = characterisation(torch.device("cpu"))
+    char_cpu_s = time.perf_counter() - t0
+    a100, v100 = card["a100"], card["v100"]
+    check(near(a100.update_period_s, 0.100, 0.1)
+          and near(a100.sampled_fraction, 0.25, 0.35)
+          and abs(a100.gain - card["a100_true_gain"]) <= 0.015,
+          f"a100 characterisation off: {a100}")
+    check(near(v100.sampled_fraction, 0.5, 0.35),
+          f"v100 characterisation off: {v100}")
+    avg = card["rtx3090_average"].transient
+    check(avg.kind == "linear" and 0.6 < avg.rise_time_s < 1.2,
+          f"rtx3090_average transient off: {avg}")
+    check(card["kepler"].kind == "logarithmic",
+          f"kepler transient off: {card['kepler']}")
+    for name, want in CHAR_PERIODS:
+        got = card[f"period_{name}"]
+        check(near(got, want, 0.15),
+              f"{name} update period {got} (want {want})")
+    (n_card, k_card), (n_cpu, k_cpu) = char_numbers(card), char_numbers(cpu)
+    check(k_card == k_cpu, f"transient kinds: card {k_card}, CPU {k_cpu}")
+    worst = 0.0
+    for got, want in zip(n_card, n_cpu):
+        if math.isnan(want):
+            check(math.isnan(got), "characterisation: card number vs nan")
+            continue
+        rel = abs(got - want) / max(abs(want), 1e-300)
+        worst = max(worst, rel)
+        check(rel <= 1e-9, f"characterisation: card {got!r} vs CPU {want!r}")
+    log(f"characterisation on the card in {char_s:.3f} s (CPU {char_cpu_s:.3f}"
+        f" s): a100 T {a100.update_period_s * 1e3:.2f} ms, W "
+        f"{a100.window_s * 1e3:.2f} ms, sampled {a100.sampled_fraction:.3f}, "
+        f"gain {a100.gain:.5f} (true {card['a100_true_gain']:.5f}), offset "
+        f"{a100.offset_w:.3f} W, R^2 {a100.r2:.6f}; v100 sampled "
+        f"{v100.sampled_fraction:.3f}; rtx3090_average {avg.kind} rise "
+        f"{avg.rise_time_s:.3f} s; kepler {card['kepler'].kind}; periods "
+        + " ".join(f"{n} {card[f'period_{n}'] * 1e3:.2f} ms"
+                   for n, _ in CHAR_PERIODS)
+        + f"; card matches the CPU (kinds equal, largest relative difference "
+        f"{worst:.3e}); {lf_7d} log_filter launches")
+
+    # -- 7e. the calibration store, then a calibrated §5 measurement ---------
+    step_integrate.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        store = CalibrationStore(root)
+        rec = store.get_or_characterise(
+            "card0", OnboardSensor(profiles.get("v100"), seed=4, device=dev),
+            GroundTruthMeter(seed=5, device=dev))
+        again = CalibrationStore(root).get("card0")
+    check(again == rec, f"calibration record reloaded as {again}, written "
+          f"as {rec}")
+    check(near(rec.update_period_s, 0.020, 0.2),
+          f"stored update period {rec.update_period_s}")
+    prof = profiles.get("rtx3090_instant")
+    sensor = OnboardSensor(prof, seed=77, device=dev)
+    ss = mb.estimate_steady_state(sensor, GroundTruthMeter(seed=8,
+                                                           device=dev))
+
+    def calib(gain=None, offset=None):
+        return CalibrationRecord("d0", prof.name, prof.update_period_s,
+                                 prof.window_s, "instant", 0.25, gain=gain,
+                                 offset_w=offset,
+                                 sampled_fraction=prof.sampled_fraction)
+    wl = pm.Workload("burst", loads.workload_burst(0.200, 230.0))
+    plain = pm.measure_good_practice(sensor, wl, calib(),
+                                     pm.GoodPracticeConfig(), seed=3)
+    cal = pm.measure_good_practice(
+        sensor, wl, calib(ss.gain, ss.offset_w),
+        pm.GoodPracticeConfig(apply_calibration=True), seed=3)
+    torch.cuda.synchronize()
+    step_7e = step_integrate.launches
+    check(step_7e > 0, "the calibrated measurement ran no step_integrate")
+    e_plain = abs(plain.error_vs(wl.true_energy_j))
+    e_cal = abs(cal.error_vs(wl.true_energy_j))
+    check(e_cal <= e_plain + 0.01, f"calibration made the §5 error worse: "
+          f"{e_cal:.4%} vs {e_plain:.4%}")
+    log(f"calibration store: v100 record written and reloaded equal (T "
+        f"{rec.update_period_s * 1e3:.2f} ms, {rec.transient_kind}); "
+        f"rtx3090_instant gain {ss.gain:.5f} (true {sensor.true_gain:.5f}), "
+        f"offset {ss.offset_w:.3f} W: §5 error {e_plain:.3%} uncalibrated, "
+        f"{e_cal:.3%} calibrated; {step_7e} step_integrate launches")
+    return dict(
+        name="fma_chain", route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{_build.SOURCES['fma_chain']}",
+        replaces=REPLACES["fma_chain"], launches=launches,
+        max_abs_err=max(err, small_err), ms=ms, plain_ms=plain_ms,
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=None, shape=[n_rows, 128], niter=niter, flops=flops,
+        launches_7b=launches_7b, launches_7c=launches_7c,
+        niters=list(FMA_NITERS), ms_by_niter=by_niter,
+        slope_ms_per_iter=float(slope), intercept_ms=float(intercept),
+        r2=float(r2), fractions=list(FMA_FRACTIONS), ms_by_fraction=by_frac,
+        sass_loop=dict(instructions=n_ins, ffma=n_ffma, others=others),
+        nvidia_smi=smi, characterise_s=char_s,
+        characterise_cpu_s=char_cpu_s), dict(launches_7d=lf_7d), dict(
+        launches_7e=step_7e)
+
+
+def near(got, want, rel):
+    """``got`` within ``rel`` of ``want``, relatively (the reference tests'
+    ``pytest.approx(want, rel=rel)``); false for nan."""
+    return abs(got - want) <= rel * abs(want)
 
 
 if __name__ == "__main__":

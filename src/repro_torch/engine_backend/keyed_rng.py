@@ -6,7 +6,8 @@ PCG64 bit for bit; it gives every draw an address instead of a place in a
 sequence.  A draw is a function of its key (a 64-bit seed) and its counter
 ``(row, slot, tag, 0)``: the fleet row of a device, the index of the draw
 within that device's stream, and the stream's tag (reading noise, poll
-jitter, §5 start offsets, the meter's ADC noise).  So a device's draws
+jitter, §5 start offsets, the meter's ADC noise, a square wave's period
+jitter, the micro-benchmarks' repetition seeds).  So a device's draws
 depend on neither which other devices share a call, nor how a fleet is cut
 into slabs, nor the device the tensors live on.
 
@@ -33,6 +34,8 @@ TAG_NOISE = 1       # SensorBank / OnboardSensor reading jitter
 TAG_JITTER = 2      # poll-time jitter
 TAG_TRIAL = 3       # §5 trial start offsets, keyed by protocol seed
 TAG_ADC = 4         # GroundTruthMeter ADC noise
+TAG_PERIOD = 5      # square-wave period jitter, keyed by the wave's seed
+TAG_REPEAT = 6      # micro-benchmark repetition seeds
 
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57

@@ -9,10 +9,10 @@ device.  They serve three roles:
   ``query_slots``, ``poll_counts``, ``snapshot_energy_at``,
   ``err_moments``) run as they are, on the card or the CPU: the JAX
   package had no TPU kernel for them either;
-* ``stream_ingest``, ``stream_ingest_grid``, ``log_filter`` and
-  ``step_integrate`` are the plain versions of the CUDA kernels in
-  :mod:`repro_torch.kernels`: the kernel wrappers run them for CPU
-  tensors, and ``chip_smoke.py`` holds each kernel against them on the
+* ``stream_ingest``, ``stream_ingest_grid``, ``log_filter``,
+  ``step_integrate`` and ``fma_chain`` are the plain versions of the CUDA
+  kernels in :mod:`repro_torch.kernels`: the kernel wrappers run them for
+  CPU tensors, and ``chip_smoke.py`` holds each kernel against them on the
   card.
 
 ``np.bincount`` becomes ``index_add_``, ``np.maximum.accumulate``
@@ -331,6 +331,36 @@ def step_integrate(ts: torch.Tensor, vals: torch.Tensor, t0: torch.Tensor,
             * (t1 - torch.gather(ts, 1, j1c)[:, 0]))
     nonempty = (j1 >= j0) & (j0 < m)
     return torch.where(nonempty, core + tail, 0.0)
+
+
+def fma_chain_slots(shape, active_fraction: float,
+                    block_rows: int) -> Tuple[int, int]:
+    """``(grid, n_active)`` of the paper's load on ``x`` of ``shape``
+    [N, 128]: ``N // block_rows`` slots of ``block_rows`` rows, the first
+    ``n_active`` of which burn (at least one, Python's ``round``)."""
+    n, lanes = shape
+    assert lanes == 128, "benchmark load operates on 128-lane rows"
+    assert n % block_rows == 0, (n, block_rows)
+    grid = n // block_rows
+    return grid, max(1, int(round(grid * active_fraction)))
+
+
+def fma_chain(x: torch.Tensor, niter: int, active_fraction: float = 1.0,
+              block_rows: int = 256) -> torch.Tensor:
+    """The paper's load (Listing 1) on ``x`` [N, 128] float32: the plain
+    version of the CUDA ``fma_chain`` kernel, formula for formula
+    ``repro.kernels.fma_chain``.  The rows of the first ``n_active`` slots
+    (:func:`fma_chain_slots`) run ``v = v*2 + 2; v = v*0.5 - 1``
+    ``niter`` times; the others copy through.  Both multiplies are exact,
+    so the chain returns ``x`` rounded to the grid of ``2x + 2`` (1e-8
+    becomes 0, -2e38 overflows), not ``x`` itself."""
+    grid, n_active = fma_chain_slots(x.shape, active_fraction, block_rows)
+    rows = min(n_active, grid) * block_rows
+    v = x[:rows].clone()
+    for _ in range(niter):
+        v = v * 2.0 + 2.0
+        v = v * 0.5 - 1.0
+    return torch.cat([v, x[rows:]])
 
 
 def _empty(cls, n_rows: int, sample_shape: tuple, device: torch.device):

@@ -5,7 +5,9 @@
 * :mod:`.log_filter` — the Kepler/Maxwell sensor filter of the fleet
   audit's sensor simulation;
 * :mod:`.step_integrate` — the §5 protocol's integral of a polled
-  reading series over a window.
+  reading series over a window;
+* :mod:`.fma_chain` — the paper's benchmark load (Listing 1), the card's
+  own power load.
 
 Each wrapper runs the plain PyTorch version
 (:mod:`repro_torch.engine_backend.torch_backend`) for CPU tensors and

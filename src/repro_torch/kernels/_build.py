@@ -28,6 +28,7 @@ SOURCES = {
     "stream_ingest_grid": "stream_ingest_grid.cu",
     "log_filter": "log_filter.cu",
     "step_integrate": "step_integrate.cu",
+    "fma_chain": "fma_chain.cu",
 }
 
 # -fmad=false keeps every product separately rounded, as the plain

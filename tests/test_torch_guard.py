@@ -19,6 +19,7 @@ from repro_torch.core.fleet_engine import SensorBank  # noqa: E402
 from repro_torch.core.stream import MonitorService  # noqa: E402
 from repro_torch.engine_backend import torch_backend as tb  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.fma_chain import fma_chain  # noqa: E402
 from repro_torch.kernels.stream_ingest import stream_ingest  # noqa: E402
 from repro_torch.kernels.stream_ingest_grid import (  # noqa: E402
     stream_ingest_grid)
@@ -74,6 +75,9 @@ def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu():
                       *([z] * 13))
     with pytest.raises(ValueError, match="cpu or cuda"):
         stream_ingest_grid(z, torch.zeros((2, 3), **f64), *([z[:2]] * 13))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fma_chain(torch.zeros((256, 128), dtype=torch.float32, device=meta),
+                  4)
 
 
 def test_kernel_build_needs_nvcc_and_says_so(monkeypatch):

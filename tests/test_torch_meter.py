@@ -7,8 +7,8 @@ Three kinds of test:
 * the cases of the reference's ``tests/test_timeline.py`` and
   ``tests/test_meter.py``, rerun on the port with its own draws (all but
   ``test_calibration_removes_gain_bias``, which needs the black-box
-  characterisation of a later slice); the property tests run over fixed
-  seeded grids;
+  characterisation and runs in ``tests/test_torch_microbench.py``); the
+  property tests run over fixed seeded grids;
 * the port against the reference's numpy tier on the same inputs, with
   hidden parameters carried by ``repro_torch.convert`` and the draws
   substituted (the reference's per-seed reading noise, start offsets and
@@ -18,8 +18,6 @@ Three kinds of test:
   ``scalar_reference`` read the same bitwise, the batched protocols
   match the scalar ones within 1e-9 J (naive) and 1e-3 J (§5).
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -86,11 +84,8 @@ def reference_draws(monkeypatch):
     reference sensor of seed ``s`` is the port bank of seed ``s``, row 0),
     the §5 start offsets its ``default_rng(seed)`` uniforms, the meter's
     ADC noise its ``default_rng(seed)`` normals."""
-    def ref_bank(bank):
-        return rfe.SensorBank([rsensor.SensorProfile(**dataclasses.asdict(p))
-                               for p in bank.profiles],
-                              seeds=bank.seed + bank._rows)
-    _torch_draws.substitute(monkeypatch, ref_bank, adc=True)
+    _torch_draws.substitute(monkeypatch, _torch_draws.reference_bank,
+                            adc=True)
 
 
 def _close(got, want, rtol=RTOL):
