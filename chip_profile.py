@@ -2,6 +2,7 @@
 
     python3 chip_profile.py            # the live monitor's ingest
     python3 chip_profile.py --audit    # the batched fleet audit
+    python3 chip_profile.py --serve    # recurrentgemma-9b prefill, decode
 
 The monitor: builds the same 100,000-device fleet as ``chip_smoke.py``,
 warms both monitors up, then traces the ingest of two grid slabs
@@ -12,6 +13,11 @@ sensor source and the permutation stay out of the trace.
 The audit: warms up with a 96-device audit, then traces
 ``chip_smoke.py``'s 100,000-device ``fleet_audit`` (naive and §5, every
 transient kind, 25,000-device slabs).
+
+The serving path: recurrentgemma-9b at full width and depth in bf16
+(``chip_smoke.py``'s phase 8b), warmed up with a short prefill, then
+traces the prefill of 2 prompts of 3000 tokens and, apart, 4 greedy
+decode steps.
 
 Prints, per trace, the wall time, the device-busy share (summed kernel
 time over wall time) and the operations with the most device time.
@@ -56,7 +62,9 @@ def traced(label, fn, host_table=False):
         print(events.table(sort_by="self_cpu_time_total", row_limit=22,
                            max_name_column_width=60), flush=True)
     for e in events:
-        if e.device_type == DeviceType.CUDA and "log_filter" in e.key:
+        if e.device_type == DeviceType.CUDA and any(
+                k in e.key for k in ("log_filter", "rglru_scan",
+                                     "flash_attention")):
             print(f"{e.key}: {e.count} launches, "
                   f"{e.self_device_time_total / 1e3:.3f} ms on the device",
                   flush=True)
@@ -78,10 +86,47 @@ def audit(dev) -> None:
            host_table=True)
 
 
+def serve(dev) -> None:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    cfg = get_config(cs.LM_ARCH)
+    params = api.init_params(cs.SEED + 37, cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED + 41)
+    toks = torch.randint(0, cfg.vocab, (cs.LM_BATCH, cs.LM_PROMPT),
+                         generator=gen, device=dev, dtype=torch.int32)
+    _, c = tf.prefill(params, cfg, {"tokens": toks[:, :64]},
+                      max_seq=cs.LM_MAX_SEQ)                # warm-up
+    api.decode_step(params, cfg, c, {"tokens": toks[:, 64:65], "pos": 64})
+    del c
+    state = {}
+
+    def prefill():
+        logits, state["cache"] = tf.prefill(params, cfg, {"tokens": toks},
+                                            max_seq=cs.LM_MAX_SEQ)
+        state["next"] = logits[:, -1].argmax(-1)
+
+    traced("serve_prefill_2x3000", prefill)
+
+    def decode(n=4):
+        for i in range(n):
+            lg, state["cache"] = api.decode_step(
+                params, cfg, state["cache"],
+                {"tokens": state["next"][:, None].to(torch.int32),
+                 "pos": cs.LM_PROMPT + i})
+            state["next"] = lg[:, 0].argmax(-1)
+
+    decode(1)                                               # warm-up
+    traced("serve_decode_4_steps", decode, host_table=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--audit", action="store_true",
                     help="trace the fleet audit instead of the monitor")
+    ap.add_argument("--serve", action="store_true",
+                    help="trace recurrentgemma-9b's prefill and decode")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -91,6 +136,9 @@ def main() -> int:
     print(torch.cuda.get_device_name(0), flush=True)
     if args.audit:
         audit(dev)
+        return 0
+    if args.serve:
+        serve(dev)
         return 0
     names, _, shifts, bank = cs.fleet(dev, cs.N_DEVICES)
 

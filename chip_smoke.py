@@ -5,7 +5,7 @@
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the checkout's ``src/``.  Phases, each of which fails the run:
 
-1. print the card's name and power limit, build the five CUDA kernels
+1. print the card's name and power limit, build the seven CUDA kernels
    (one ``nvcc`` each, started together) and print their registers and
    spills;
 2. hold the monitor's two kernels against their plain PyTorch versions on
@@ -56,7 +56,20 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    meet the reference tests' bars; a ``CalibrationStore`` record written
    and reloaded, and a calibrated §5 measurement (``step_integrate``) no
    worse than an uncalibrated one.  Launches: ``fma_chain`` over 7b-7c,
-   ``log_filter`` over 7d, ``step_integrate`` over 7e.
+   ``log_filter`` over 7d, ``step_integrate`` over 7e;
+8. recurrentgemma-9b serving: ``rglru_scan`` against its plain version
+   bitwise and ``flash_attention`` against ``blocked_attention`` within
+   ``FLASH_TOL`` of each type, at small adversarial shapes (ragged,
+   window, soft-cap, MQA/GQA, odd groups and head_dim, rows with no
+   valid key; f32/f16/bf16) and the main path's shapes, timed there
+   beside ``scaled_dot_product_attention`` (8a); then the full model
+   (38 layers, bf16, weights drawn on the card): ``prefill`` of 2 × 3000
+   tokens (past the 2048-token window), 16 greedy ``decode_step``s and a
+   2-slot ``ServingEngine`` answering 4 requests, launches counted over
+   that run (one per rglru and per attention layer of the prefill),
+   then ``prefill(2999) + decode_step`` against ``prefill(3000)`` (8b);
+   the reduced model in float32 on the card and the CPU, which must
+   agree (8c).
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -110,6 +123,8 @@ REPLACES = {
     "step_integrate":
         "src/repro/core/engine_backend/pallas_backend.py:424",
     "fma_chain": "src/repro/kernels/fma_chain.py:26",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:22",
+    "flash_attention": "src/repro/kernels/flash_attention.py:25",
 }
 #: step_integrate's float64 operations per selected sample (mask select,
 #: sub, mul, add; the trapezoid rule's add and half counted too)
@@ -136,6 +151,40 @@ FMA_ADVERSARIAL = (1e-8, -1e-8, 3e-39, -3e-39, 2e38, -2e38, math.inf,
 SMI_WAVE_S = 8.0
 SMI_HALF_S = 0.010
 SMI_PLATEAU_S = 2.0
+#: phase 8, recurrentgemma-9b at full width and depth, bf16: a prefill of
+#: 2 prompts of 3000 tokens (past the 2048-token window, so the rings
+#: wrap) into a cache of 3100 positions, then 16 greedy decode steps; a
+#: ServingEngine of 2 slots answering 4 requests of 16-token prompts
+LM_ARCH = "recurrentgemma-9b"
+LM_BATCH = 2
+LM_PROMPT = 3000
+LM_MAX_SEQ = 3100
+LM_DECODE = 16
+LM_SERVE_SLOTS = 2
+LM_SERVE_REQUESTS = 4
+LM_SERVE_PROMPT = 16
+LM_SERVE_NEW = 8
+LM_SERVE_MAX_SEQ = 64
+LM_WINDOW = 2048
+#: the kernels' main-path shapes: the recurrence's a, u [B, S, d_rec] and
+#: attention's (B, S, Hq, Hkv, head_dim)
+LM_SCAN_SHAPE = (LM_BATCH, LM_PROMPT, 4096)
+LM_ATTN_SHAPE = (LM_BATCH, LM_PROMPT, 16, 1, 256)
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12
+#: flash_attention against blocked_attention, absolute and relative, by
+#: type: f32 and bf16 the reference's own flash tests' tolerances
+#: (tests/test_kernels.py), f16 between them (its 10-bit mantissa); the
+#: two differ in the order of the f32 sums and where a probability
+#: rounds to the input type
+FLASH_TOL = {torch.float32: 2e-5, torch.float16: 4e-3, torch.bfloat16: 2e-2}
+#: 8b: prefill(S-1) + decode_step against prefill(S), relative L2 of the
+#: last position's logits: the two paths round the bf16 residual stream
+#: (8 bits of mantissa) at other places over 38 layers
+LM_CONSISTENCY_REL = 0.1
+#: 8c: card against CPU in float32, relative to the largest logit: the
+#: order of f32 sums in the products and in attention
+LM_REDUCED_TOL = 1e-4
 #: 7d: estimate_update_period's sensor classes and their periods
 #: (tests/test_microbench.py::test_update_period_catalog)
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
@@ -398,6 +447,8 @@ def main() -> int:
     results[-2].update(lf_7d)
     results[-1].update(step_7e)
     results.append(fma)
+    torch.cuda.empty_cache()
+    results.extend(lm_serving(dev))
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1546,6 +1597,403 @@ def paper_load(dev):
         nvidia_smi=smi, characterise_s=char_s,
         characterise_cpu_s=char_cpu_s), dict(launches_7d=lf_7d), dict(
         launches_7e=step_7e)
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma-9b serving
+# ---------------------------------------------------------------------------
+def rglru_cases(dev):
+    """rglru_scan inputs on ``dev``: ragged and tiny shapes, decays in
+    (0, 1), exactly 1 and above 1, f32 and bf16 u; then the main path's
+    [2, 3000, 4096] f32.  Returns (label, a, u) triples."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 29)
+
+    def case(b, s, d, dtype=torch.float32, edges=True):
+        a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+        if edges:
+            a[..., : d // 4] = 1.0
+            a[..., d // 4: d // 3] *= 1.3
+        u = torch.randn((b, s, d), generator=gen, device=dev)
+        return (f"[{b}, {s}, {d}] {str(dtype)[6:]}", a, u.to(dtype))
+    return [case(1, 1, 1), case(3, 17, 5), case(2, 100, 513),
+            case(1, 257, 64, torch.bfloat16), case(2, 64, 96, torch.float16),
+            case(*LM_SCAN_SHAPE, edges=False)]
+
+
+def rglru_check(a, u):
+    """The kernel against its plain version on the same card inputs,
+    bitwise; returns the largest absolute difference (0.0)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    got = rglru_scan(a, u)
+    want = rglru_scan_plain(a, u)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"rglru_scan output {got.dtype}{tuple(got.shape)}, plain "
+          f"{want.dtype}{tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.equal(got, want), f"rglru_scan at {list(a.shape)} "
+          f"{u.dtype}: not bitwise equal to the plain version (largest "
+          f"difference {err:.3e})")
+    return err
+
+
+def flash_cases(dev):
+    """flash_attention inputs on ``dev``: tests/test_kernels.py's shapes
+    (GQA, MQA, ragged, non-causal, window, soft-cap, S != T), an odd
+    group and head_dim, a 128-head group, rows with no valid key, and the
+    main path's shape at small S, in f32, f16 and bf16; then the main
+    path's own shape.  Returns (label, q, k, v, kwargs)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+
+    def case(b, s, t, hq, hkv, d, dtype=torch.float32, **kw):
+        q, k, v = (torch.randn((b, n, h, d), generator=gen,
+                               device=dev).to(dtype)
+                   for n, h in ((s, hq), (t, hkv), (t, hkv)))
+        label = (f"q [{b}, {s}, {hq}, {d}] k [{b}, {t}, {hkv}, {d}] "
+                 f"{str(dtype)[6:]} {kw}")
+        opts = dict(causal=True, window=0, softcap=0.0)
+        opts.update(kw)
+        return label, q, k, v, opts
+    out = [case(2, 64, 64, 4, 4, 32), case(2, 100, 100, 4, 2, 32),
+           case(2, 64, 64, 8, 1, 16), case(2, 64, 64, 4, 2, 32, causal=False),
+           case(2, 96, 96, 2, 2, 32, window=17),
+           case(2, 64, 64, 2, 2, 32, softcap=20.0),
+           case(2, 32, 128, 2, 2, 32, causal=False),
+           case(1, 50, 50, 6, 2, 48, window=9, softcap=5.0),
+           case(1, 40, 40, 128, 1, 64),
+           case(1, 64, 16, 4, 2, 32, window=8),
+           case(1, 70, 70, 4, 1, 256, causal=False, window=20)]
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        out.append(case(2, 300, 300, 16, 1, 256, dtype, window=64))
+        out.append(case(1, 64, 64, 4, 2, 32, dtype, softcap=30.0))
+    b, s, hq, hkv, d = LM_ATTN_SHAPE
+    out.append(case(b, s, s, hq, hkv, d, torch.bfloat16,
+                    window=LM_WINDOW))
+    return out
+
+
+def flash_check(q, k, v, kw):
+    """The kernel against blocked_attention on the same card inputs,
+    within FLASH_TOL of its type (absolute and relative, the reference
+    tests' tolerances); returns the largest absolute difference."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import blocked_attention
+    got = flash_attention(q, k, v, **kw)
+    want = blocked_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"flash_attention output {got.dtype}{tuple(got.shape)}, plain "
+          f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    tol = FLASH_TOL[q.dtype]
+    bad = (g - w).abs() > tol + tol * w.abs()
+    check(not bool(bad.any()) and bool(torch.isfinite(g).all()),
+          f"flash_attention at q {list(q.shape)} k {list(k.shape)} "
+          f"{q.dtype} {kw}: {int(bad.sum())} outputs off by more than "
+          f"{tol:g} (largest {err:.3e})")
+    return err
+
+
+def attention_pairs(s, t, window, causal=True):
+    """(query, key) pairs the masks keep, per (batch, head)."""
+    q = np.arange(s)[:, None]
+    k = np.arange(t)[None, :]
+    keep = (k <= q) if causal else np.ones((s, t), bool)
+    if window > 0:
+        keep &= k > q - window
+    return int(keep.sum())
+
+
+def sdpa_ms(q, k, v, window):
+    """``scaled_dot_product_attention``'s time on the same function: a
+    causal sliding-window boolean mask, the KV head shared by the group
+    (``enable_gqa``; where this PyTorch lacks it, K and V expanded to
+    every head before the clock).  Returns (ms, largest difference from
+    flash_attention's output, how the group's KV head was shared)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    s, t = q.shape[1], k.shape[1]
+    pos_q = torch.arange(s, device=q.device)[:, None]
+    pos_k = torch.arange(t, device=q.device)[None, :]
+    mask = (pos_k <= pos_q) & (pos_k > pos_q - window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    g = q.shape[2] // k.shape[2]
+    try:
+        F.scaled_dot_product_attention(qt[:, :, :1], kt, vt,
+                                       attn_mask=mask[:1], enable_gqa=True)
+        extra, how = dict(enable_gqa=True), "enable_gqa"
+    except TypeError:
+        kt = kt.repeat_interleave(g, dim=1)
+        vt = vt.repeat_interleave(g, dim=1)
+        extra, how = {}, "K and V expanded"
+
+    def run():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              **extra)
+    ms = time_ms(run, 5)
+    diff = float((run().transpose(1, 2).float() - flash_attention(
+        q, k, v, window=window).float()).abs().max())
+    return ms, diff, how
+
+
+def lm_kernels(dev):
+    """Phase 8a: both kernels against their plain versions on the card,
+    then the main path's shapes timed.  Returns the two records (without
+    launches)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    from repro_torch.models.layers import blocked_attention
+
+    # full f32 products: TF32 would change the numbers held against the
+    # plain versions and the CPU (matmuls default to off, cuDNN to on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scan = rglru_cases(dev)
+    scan_err = max(rglru_check(a, u) for _, a, u in scan)
+    log(f"rglru_scan vs plain, bitwise equal at {len(scan)} shapes: "
+        + "; ".join(label for label, _, _ in scan))
+    _, a, u = scan[-1]
+    scan_shape = list(a.shape)
+    scan_ms = time_ms(lambda: rglru_scan(a, u), 20)
+    scan_plain_ms = time_ms(lambda: rglru_scan_plain(a, u), 1)
+    scan_bytes = 3 * a.numel() * 4
+    scan_bound = scan_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"rglru_scan at {scan_shape} f32: kernel {scan_ms:.4f} ms, plain "
+        f"{scan_plain_ms:.3f} ms, bound {scan_bound:.4f} ms (bytes: "
+        f"{scan_bytes:,}), {scan_bound / scan_ms:.1%} of it")
+
+    flash = flash_cases(dev)
+    errs = {}
+    for label, q, k, v, kw in flash:
+        errs[q.dtype] = max(errs.get(q.dtype, 0.0), flash_check(q, k, v, kw))
+    tols = ", ".join(f"{str(t)[6:]} {v:g}" for t, v in FLASH_TOL.items())
+    log(f"flash_attention vs blocked_attention at {len(flash)} shapes, "
+        f"within {tols}; "
+        f"largest differences: " + ", ".join(
+            f"{str(t)[6:]} {e:.3e}" for t, e in errs.items()))
+    _, q, k, v, kw = flash[-1]
+    b, s, hq, d = q.shape
+    fl_ms = time_ms(lambda: flash_attention(q, k, v, **kw), 5)
+    fl_plain_ms = time_ms(lambda: blocked_attention(q, k, v, **kw), 1)
+    lib_ms, lib_diff, lib_how = sdpa_ms(q, k, v, kw["window"])
+    pairs = attention_pairs(s, s, kw["window"])
+    flops = 4 * d * pairs * b * hq
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    fl_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bytes_ms = fl_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"flash_attention at q [{b}, {s}, {hq}, {d}] k/v "
+        f"{list(k.shape)} bf16, window {kw['window']}: kernel {fl_ms:.3f} "
+        f"ms, plain {fl_plain_ms:.3f} ms, scaled_dot_product_attention "
+        f"{lib_ms:.3f} ms ({lib_how}; largest difference {lib_diff:.3e}), "
+        f"bound "
+        f"{max(ops_ms, bytes_ms):.4f} ms ({pairs:,} pairs per head, "
+        f"{flops:.4e} FLOPs at the bf16 tensor rate; bytes "
+        f"{bytes_ms:.4f} ms), {max(ops_ms, bytes_ms) / fl_ms:.1%} of it")
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        dict(name="rglru_scan", route="cuda",
+             source=src + _build.SOURCES["rglru_scan"],
+             replaces=REPLACES["rglru_scan"], launches=0,
+             max_abs_err=scan_err, ms=scan_ms, plain_ms=scan_plain_ms,
+             bound_ms=scan_bound, bound_by="bytes", library_ms=None,
+             shape=scan_shape, bytes=scan_bytes),
+        dict(name="flash_attention", route="cuda",
+             source=src + _build.SOURCES["flash_attention"],
+             replaces=REPLACES["flash_attention"], launches=0,
+             max_abs_err=max(errs.values()), ms=fl_ms, plain_ms=fl_plain_ms,
+             bound_ms=max(ops_ms, bytes_ms),
+             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+             library_ms=lib_ms, shape=[list(q.shape), list(k.shape)],
+             window=kw["window"], pairs_per_head=pairs, flops=flops,
+             max_abs_err_by_type={str(t)[6:]: e for t, e in errs.items()},
+             library_max_abs_diff=lib_diff, library_call=(
+                 f"scaled_dot_product_attention, boolean mask, {lib_how}"))]
+
+
+def lm_serving(dev):
+    """Phase 8; returns the records of rglru_scan and flash_attention."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    # -- 8a. the kernels against their plain versions -----------------------
+    scan_rec, flash_rec = lm_kernels(dev)
+    torch.cuda.empty_cache()
+
+    # -- 8b. the main path: recurrentgemma-9b, full width and depth ----------
+    cfg = get_config(LM_ARCH)
+    kinds = cfg.layer_kinds()
+    n_rglru = kinds.count("rglru")
+    n_attn = sum(k.startswith("attn") for k in kinds)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = api.init_params(SEED + 37, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 41)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                         device=dev, dtype=torch.int32)
+    log(f"{LM_ARCH}: {cfg.n_layers} layers ({n_rglru} rglru, {n_attn} "
+        f"local attention, window {cfg.sliding_window}), d_model "
+        f"{cfg.d_model}, {tf.param_count(cfg):,} parameters in "
+        f"{cfg.param_dtype}, drawn on the card in {init_s:.2f} s")
+    # warm-up: cuBLAS handles and every kernel's first launch
+    warm = min(64, LM_PROMPT - 1)
+    _, c = tf.prefill(params, cfg, {"tokens": toks[:, :warm]},
+                      max_seq=LM_MAX_SEQ)
+    api.decode_step(params, cfg, c, {"tokens": toks[:, warm:warm + 1],
+                                     "pos": warm})
+    del c
+    torch.cuda.synchronize()
+
+    rglru_scan.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, cfg, {"tokens": toks},
+                               max_seq=LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    per_prefill = (rglru_scan.launches, flash_attention.launches)
+    check(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, cfg.vocab)
+          and logits.dtype == torch.float32, f"prefill logits "
+          f"{logits.dtype}{tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    last = logits[:, -1].clone()
+    del logits
+    nxt = last.argmax(-1)
+    generated, step_s = [], []
+    for i in range(LM_DECODE):
+        t0 = time.perf_counter()
+        lg, cache = api.decode_step(params, cfg, cache, {
+            "tokens": nxt[:, None].to(torch.int32), "pos": LM_PROMPT + i})
+        nxt = lg[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(lg).all()), f"decode step {i}: logits "
+              f"not finite")
+        generated.append(nxt.tolist())
+    del cache
+    eng = ServingEngine(cfg, params, n_slots=LM_SERVE_SLOTS,
+                        max_seq=LM_SERVE_MAX_SEQ, device=dev)
+    reqs = [Request(i, torch.randint(0, cfg.vocab, (LM_SERVE_PROMPT,),
+                                     generator=gen, device=dev).cpu().numpy(),
+                    max_new_tokens=LM_SERVE_NEW)
+            for i in range(LM_SERVE_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = (rglru_scan.launches, flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ticks = eng.ticks
+    check(len(done) == LM_SERVE_REQUESTS and all(
+        r.done and len(r.generated) == LM_SERVE_NEW for r in reqs),
+        f"ServingEngine answered {len(done)} of {LM_SERVE_REQUESTS}")
+    check(per_prefill == (n_rglru, n_attn), f"a prefill launched rglru_scan "
+          f"{per_prefill[0]} and flash_attention {per_prefill[1]} times, "
+          f"not once per layer ({n_rglru}, {n_attn})")
+    check(launches == per_prefill, f"decode launched kernels: {launches}")
+    steps = sorted(step_s)
+    log(f"8b main path: prefill {LM_BATCH} x {LM_PROMPT} tokens in "
+        f"{prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / prefill_s:,.0f} "
+        f"tokens/s); {LM_DECODE} greedy decode steps, median "
+        f"{steps[len(steps) // 2] * 1e3:.2f} ms (min {steps[0] * 1e3:.2f}, "
+        f"max {steps[-1] * 1e3:.2f}); tokens per row "
+        f"{[[g[b] for g in generated] for b in range(LM_BATCH)]}; "
+        f"ServingEngine, {LM_SERVE_SLOTS} slots, {LM_SERVE_REQUESTS} requests "
+        f"of {LM_SERVE_PROMPT} + {LM_SERVE_NEW} tokens: {ticks} ticks in "
+        f"{serve_s:.3f} s, tokens {[r.generated for r in reqs]}; launches "
+        f"rglru_scan {launches[0]}, flash_attention {launches[1]}; peak "
+        f"memory {peak / 1e9:.2f} GB")
+
+    # -- 8b. prefill(S-1) + decode_step against prefill(S) -------------------
+    rglru_scan.launches = 0
+    flash_attention.launches = 0
+    lg, c = tf.prefill(params, cfg, {"tokens": toks[:, :-1]},
+                       max_seq=LM_MAX_SEQ)
+    del lg
+    lg, _ = api.decode_step(params, cfg, c, {"tokens": toks[:, -1:],
+                                             "pos": LM_PROMPT - 1})
+    del c
+    dec = lg[:, 0]
+    rel = float(torch.linalg.vector_norm(dec - last)
+                / torch.linalg.vector_norm(last))
+    same = bool(torch.equal(dec.argmax(-1), last.argmax(-1)))
+    log(f"prefill({LM_PROMPT - 1}) + decode_step vs prefill({LM_PROMPT}): "
+        f"relative L2 of the last logits {rel:.3e}, argmax "
+        f"{dec.argmax(-1).tolist()} vs {last.argmax(-1).tolist()}")
+    check(same and rel < LM_CONSISTENCY_REL, f"prefill + decode_step "
+          f"disagrees with prefill: relative L2 {rel:.3e}, argmax equal "
+          f"{same}")
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # -- 8c. the reduced model in float32, card against CPU ------------------
+    red = lm_reduced(dev)
+    cpu = lm_reduced(torch.device("cpu"))
+    worst = {}
+    for key in ("forward", "prefill", "decode"):
+        a, b = red[key], cpu[key]
+        err = float((a - b).abs().max())
+        worst[key] = err
+        check(err <= LM_REDUCED_TOL * float(b.abs().max()),
+              f"reduced {key} logits: card vs CPU off by {err:.3e}")
+    check(red["serve"] == cpu["serve"], f"reduced ServingEngine tokens: "
+          f"card {red['serve']}, CPU {cpu['serve']}")
+    log("8c reduced recurrentgemma-9b, float32, card vs CPU: largest "
+        "logit differences " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in worst.items())
+        + f" (within {LM_REDUCED_TOL:g} x max|logit|); ServingEngine "
+        f"tokens equal: {red['serve']}")
+
+    extra = dict(prefill_s=prefill_s, decode_ms=[t * 1e3 for t in step_s],
+                 serve_s=serve_s, serve_ticks=ticks,
+                 peak_memory_bytes=peak, consistency_rel_l2=rel,
+                 reduced_max_abs_diff=worst)
+    scan_rec.update(launches=launches[0], **extra)
+    flash_rec.update(launches=launches[1])
+    return [scan_rec, flash_rec]
+
+
+def lm_reduced(dev):
+    """Phase 8c on ``dev``: recurrentgemma-9b's REDUCED config in float32,
+    weights drawn on the CPU from one seed; forward over 40 tokens (past
+    the 16-token window), prefill(39) + decode_step, and a 2-slot
+    ServingEngine answering 3 requests."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServingEngine
+    cfg = get_config(LM_ARCH, reduced=True).replace(param_dtype="float32")
+    params = tf.map_tree(lambda _, x: x.to(dev),
+                         api.init_params(SEED + 43, cfg, "cpu"))
+    rng = np.random.default_rng(SEED + 47)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)),
+                           dtype=torch.int32, device=dev)
+    logits, _ = api.forward(params, cfg, {"tokens": toks})
+    pre, cache = tf.prefill(params, cfg, {"tokens": toks[:, :-1]},
+                            max_seq=48)
+    dec, _ = api.decode_step(params, cfg, cache, {"tokens": toks[:, -1:],
+                                                  "pos": 39})
+    eng = ServingEngine(cfg, params, n_slots=2, max_seq=32, device=dev)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=6) for i, n in enumerate((5, 8, 3))]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return dict(forward=logits.cpu(), prefill=pre.cpu(),
+                decode=dec[:, 0].cpu(), serve=[r.generated for r in reqs])
 
 
 def near(got, want, rel):

@@ -1,0 +1,81 @@
+"""ArchConfig — the model-config schema (a copy of
+:mod:`repro.configs.base`'s, every field kept so that a reference config's
+``to_dict`` round-trips)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from repro_torch.common.config import Config
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig(Config):
+    name: str = ""
+    family: str = "dense"        # dense | moe | ssm | vlm | audio | hybrid
+
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 2
+    n_kv_heads: int = 2
+    head_dim: int = 64
+    d_ff: int = 256
+    vocab: int = 1000
+
+    # a repeating pattern of block kinds; "attn" blocks include the MLP,
+    # recurrent kinds are self-contained
+    block_pattern: Tuple[str, ...] = ("attn",)
+
+    # attention
+    sliding_window: int = 0          # 0 = full attention
+    alt_local_global: bool = False
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    rope_theta: float = 10_000.0
+    mrope: bool = False
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    expert_pad_to: int = 16
+
+    # norms / embeddings
+    norm_kind: str = "rmsnorm"       # rmsnorm | layernorm | nonparam_ln
+    tie_embeddings: bool = True
+    act: str = "silu"
+
+    # encoder-decoder
+    encdec: bool = False
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+
+    # "tokens" (LM) or "embeds" (VLM/audio)
+    input_mode: str = "tokens"
+
+    # recurrent dims
+    d_rec: int = 0                   # RG-LRU width (0 => d_model)
+    conv_width: int = 4
+    mlstm_chunk: int = 128
+
+    param_dtype: str = "bfloat16"
+
+    @property
+    def d_rec_actual(self) -> int:
+        return self.d_rec or self.d_model
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Expanded per-layer block kinds, length n_layers."""
+        per = len(self.block_pattern)
+        return tuple(self.block_pattern[i % per]
+                     for i in range(self.n_layers))
+
+    def validate(self) -> None:
+        assert self.n_heads % self.n_kv_heads == 0, (self.n_heads,
+                                                     self.n_kv_heads)
+        if self.family == "moe":
+            assert self.n_experts > 0 and self.top_k > 0
+        if self.encdec:
+            assert self.n_enc_layers > 0 and self.n_dec_layers > 0

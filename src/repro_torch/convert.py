@@ -1,8 +1,9 @@
 """Carry the JAX package's parameters into the port, and back to numpy.
 
-This system has no model weights; what a run carries are a sensor fleet's
-hidden parameters, the §5 correction parameters and a monitor's online
-state.  The functions here take them as numpy arrays — as the reference
+What a monitor or audit run carries are a sensor fleet's hidden
+parameters, the §5 correction parameters and a monitor's online state;
+the language model's weights go across with :func:`lm_params`.  The
+functions here take them as numpy arrays — as the reference
 package (:mod:`repro`) holds them — and build the port's tensors on a
 device, or turn the port's back into numpy so that the two packages can
 be compared like with like.  Field names follow the reference:
@@ -21,13 +22,15 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fleet_engine import SensorBank, StreamingMoments
 from repro_torch.core.ground_truth import ActivityTimeline
 from repro_torch.core.sensor import OnboardSensor, SensorProfile
 from repro_torch.core.stream.estimators import StreamCorrections
 from repro_torch.core.stream.monitor import MonitorService
 from repro_torch.core.stream.state import DeviceState
+from repro_torch.models import transformer
 
 _RING_SLOT_FIELDS = ("t", "v", "e_raw", "e_corr")
 _MOMENT_FIELDS = ("n", "mean", "m2", "mean_abs", "max_abs")
@@ -171,3 +174,41 @@ def monitor_arrays(monitor: MonitorService) -> Dict[str, np.ndarray]:
         out[f"moments.{name}"] = np.array(
             [getattr(core._moments[lb], name) for lb in labels], dtype=dtype)
     return out
+
+
+def _from_numpy(x) -> torch.Tensor:
+    """A tensor of ``x``'s values and type; numpy's ``bfloat16`` (the
+    ``ml_dtypes`` type JAX hands out) goes across bit for bit."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def lm_params(ref_params: Mapping, cfg: ArchConfig,
+              device: DeviceLike = "cuda") -> Dict:
+    """The port's parameter tree for ``cfg`` from a reference tree
+    (``repro.models.api.init_params``'s, its leaves as numpy arrays):
+    the same nested keys, every leaf's values, shape and type kept.
+    Raises if a leaf is missing, extra, or of another shape or type."""
+    dev = resolve_device(device)
+    specs = transformer.param_specs(cfg)
+    want = {path for path, _ in transformer.leaves(specs)}
+    have = {path for path, _ in transformer.leaves(dict(ref_params))}
+    if want != have:
+        raise ValueError(f"lm_params: reference tree differs from the "
+                         f"port's: missing {sorted(want - have)}, extra "
+                         f"{sorted(have - want)}")
+
+    def leaf(path, spec):
+        x = ref_params
+        for k in path:
+            x = x[k]
+        t = _from_numpy(x)
+        if tuple(t.shape) != spec.shape or t.dtype != spec.dtype:
+            raise ValueError(f"lm_params: {'/'.join(path)} is {t.dtype}"
+                             f"{tuple(t.shape)}, the port's {spec.dtype}"
+                             f"{spec.shape}")
+        return t.to(dev)
+    return transformer.map_tree(leaf, specs)

@@ -29,6 +29,8 @@ SOURCES = {
     "log_filter": "log_filter.cu",
     "step_integrate": "step_integrate.cu",
     "fma_chain": "fma_chain.cu",
+    "rglru_scan": "rglru_scan.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 # -fmad=false keeps every product separately rounded, as the plain

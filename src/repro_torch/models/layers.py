@@ -1,0 +1,235 @@
+"""Shared layers of the port's language model: norms, RoPE, the gated
+MLP and attention (a port of :mod:`repro.models.layers`).
+
+Types follow JAX's promotion at each op, written out because
+``torch.einsum`` refuses mixed types: a product of two bf16 tensors is
+bf16 (accumulated in f32), a bf16 × f32 product is f32, and where the
+reference asks for ``preferred_element_type=float32`` both operands are
+taken to f32 (a bf16 product is exact in f32, so this is the same sum).
+
+:func:`blocked_attention` is the plain version of the CUDA
+``flash_attention`` kernel (:mod:`repro_torch.kernels.flash_attention`),
+as the reference's ``kernels/ref.py`` makes it the Pallas kernel's
+oracle.  ``apply_mrope`` is not ported yet (ROADMAP A.6).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the operands' promoted type, as ``jnp.einsum``
+    computes it without ``preferred_element_type``."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
+def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(..., preferred_element_type=jnp.float32)``."""
+    return torch.einsum(eq, *(o.float() for o in ops))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * (1.0 + scale.float())
+    return y.to(dt)
+
+
+def layernorm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo-style non-parametric LayerNorm (no scale, no bias)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+def apply_norm(kind: str, x: torch.Tensor,
+               scale: Optional[torch.Tensor]) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, scale)
+    if kind == "nonparam_ln":
+        return layernorm_nonparam(x)
+    if kind == "layernorm":
+        y = layernorm_nonparam(x)
+        if scale is not None:
+            y = y * (1.0 + scale.to(y.dtype))
+        return y
+    raise ValueError(f"unknown norm kind {kind}")
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x [..., S, H, D]; positions [..., S] (broadcastable)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # [D/2]
+    ang = positions[..., None].float() * freqs            # [..., S, D/2]
+    ang = ang[..., None, :]                               # [..., S, 1, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def activation(g: torch.Tensor, act: str) -> torch.Tensor:
+    """``jax.nn.silu`` or ``jax.nn.gelu`` (tanh approximation, JAX's
+    default)."""
+    if act == "silu":
+        return F.silu(g)
+    if act == "gelu":
+        return F.gelu(g, approximate="tanh")
+    raise ValueError(act)
+
+
+def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SwiGLU/GeGLU block: (act(x·Wg) ⊙ x·Wu)·Wd."""
+    g = activation(einsum("bsd,df->bsf", x, w_gate), act)
+    u = einsum("bsd,df->bsf", x, w_up)
+    return einsum("bsf,fd->bsd", g * u, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Blocked online-softmax attention (the plain version of flash_attention)
+# ---------------------------------------------------------------------------
+
+def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(s / cap) if cap > 0.0 else s
+
+
+def _pad_axis(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
+    pad = (-x.shape[axis]) % multiple
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_offset: int = 0, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0,
+                      block_q: int = 512, block_k: int = 1024
+                      ) -> torch.Tensor:
+    """Memory-efficient attention, block for block the reference's.
+
+    q [B,S,Hq,D], k/v [B,T,Hkv,D] with Hq = G·Hkv (GQA).  ``window`` > 0
+    is sliding-window attention of that width, ``softcap`` > 0 gemma2's
+    logit soft-capping.  Scores and the online softmax (m, l, acc) are
+    f32; the probabilities are rounded to v's type before the PV
+    product, as the reference does.  Never holds more than
+    [B, block_q, Hq, block_k] scores.
+    """
+    B, S, Hq, Dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    G = Hq // Hkv
+    scale = Dh ** -0.5
+    dev = q.device
+    block_q = min(block_q, max(S, 1))
+    block_k = min(block_k, max(T, 1))
+    qp = _pad_axis(q, 1, block_q)
+    kp = _pad_axis(k, 1, block_k)
+    vp = _pad_axis(v, 1, block_k)
+    Sp, Tp = qp.shape[1], kp.shape[1]
+    nq, nk = Sp // block_q, Tp // block_k
+    qb = qp.reshape(B, nq, block_q, Hkv, G, Dh)
+    kb = kp.reshape(B, nk, block_k, Hkv, Dh)
+    vb = vp.reshape(B, nk, block_k, Hkv, Dh)
+    rows = torch.arange(block_q, dtype=torch.int32, device=dev)
+    cols = torch.arange(block_k, dtype=torch.int32, device=dev)
+    outs = []
+    for qi in range(nq):
+        qblk = qb[:, qi].float()                    # [B,bq,Hkv,G,D]
+        q_pos = q_offset + qi * block_q + rows
+        valid_q = (qi * block_q + rows) < S
+        m = torch.full((B, block_q, Hkv, G), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, block_q, Hkv, G), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((B, block_q, Hkv, G, Dh), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            k_pos = ki * block_k + cols
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qblk,
+                             kb[:, ki].float()) * scale
+            s = _softcap(s, softcap)
+            if causal:
+                mask = k_pos[None, :] <= q_pos[:, None]
+            else:
+                mask = torch.ones((block_q, block_k), dtype=torch.bool,
+                                  device=dev)
+            if window > 0:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            mask = mask & (k_pos[None, :] < T)
+            mask5 = mask[None, :, None, None, :]
+            s = torch.where(mask5, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            # guard fully masked rows (m_new == NEG_INF)
+            m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(mask5, p, 0.0)
+            alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", p.to(v.dtype).float(),
+                vb[:, ki].float())
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-20)[..., None]
+        out = out * valid_q[None, :, None, None, None]
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, Sp, Hq, Dh)[:, :S]
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Single-position attention against a KV cache.
+
+    q [B,1,Hq,D]; caches [B,T,Hkv,D]; ``cache_len`` [B]: the number of
+    valid entries (the new token already written at cache_len-1).
+    """
+    B, _, Hq, Dh = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qr = q.reshape(B, Hkv, G, Dh)
+    s = einsum_f32("bhgd,bkhd->bhgk", qr, k_cache) * (Dh ** -0.5)
+    s = _softcap(s, softcap)
+    k_pos = torch.arange(T, dtype=torch.int32, device=q.device)
+    cl = cache_len.reshape(-1, 1).to(q.device)
+    mask = k_pos[None, :] < cl
+    if window > 0:
+        mask = mask & (k_pos[None, :] >= cl - window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = einsum_f32("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, Hq, Dh).to(q.dtype)

@@ -1,0 +1,539 @@
+"""Decoder-only LM of the port: recurrentgemma's block kinds (``rglru``,
+``attn``, ``attn_local``, ``attn_global``) with a dense MLP (a port of
+:mod:`repro.models.transformer`).
+
+Parameters are a nested dict of tensors in the reference's layout:
+layers grouped into pattern periods with each leaf stacked over periods
+(``params["blocks"]["p{i}_{kind}"]``), a remainder group
+(``params["rem"]["r{i}_{kind}"]``, recurrentgemma's 38 = 12·3 + 2), the
+tied embedding and the final norm.  Where the reference scans over
+periods, the port loops over them.
+
+Three entry points:
+  * :func:`forward`      — full-sequence logits (+ the MoE aux loss, 0)
+  * :func:`prefill`      — forward that also fills the decode cache
+  * :func:`decode_step`  — one token against the cache: the serve path
+
+The two sequence mixers run the port's CUDA kernels on the card:
+attention through :func:`repro_torch.kernels.flash_attention
+.flash_attention` where the reference calls ``blocked_attention``, the
+RG-LRU recurrence through :func:`repro_torch.kernels.rglru_scan
+.rglru_scan` where it calls ``rglru_scan_ref``.  The reference's
+``use_pallas`` flag has no counterpart: the tensors' device chooses.
+MoE, mLSTM, sLSTM, M-RoPE and ``embeds`` inputs raise
+``NotImplementedError`` (ROADMAP A.6).
+
+Types follow the reference op by op (see :mod:`.layers`).  A float32
+product is full float32 only with TF32 off: the port leaves
+``torch.backends.cuda.matmul.allow_tf32`` (False by default) and
+``torch.backends.cudnn.allow_tf32`` as the caller set them, and
+``chip_smoke.py`` sets both False.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Tuple, Union
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import recurrent as rec
+from repro_torch.models.layers import (apply_norm, apply_rope,
+                                       decode_attention, einsum, einsum_f32,
+                                       gated_mlp)
+
+Params = Dict[str, Any]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+ATTN_KINDS = ("attn", "attn_local", "attn_global")
+
+
+class TensorSpec(NamedTuple):
+    """Shape and type of one parameter or cache leaf."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return DTYPES[cfg.param_dtype]
+
+
+def _norm_has_scale(cfg: ArchConfig) -> bool:
+    return cfg.norm_kind in ("rmsnorm", "layernorm")
+
+
+def _unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(f"block kind {kind!r} not ported yet "
+                               f"(ROADMAP A.6)")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    missing = []
+    if cfg.encdec:
+        missing.append("encoder-decoder")
+    if cfg.family == "moe" or cfg.n_experts:
+        missing.append("MoE")
+    if cfg.mrope:
+        missing.append("M-RoPE")
+    if cfg.input_mode != "tokens":
+        missing.append(f"{cfg.input_mode!r} inputs")
+    missing += [f"{k!r} blocks" for k in sorted(set(cfg.block_pattern))
+                if k not in ATTN_KINDS + ("rglru",)]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name or 'this config'}: {', '.join(missing)} not ported "
+            f"yet (ROADMAP A.6); the port runs rglru and attention blocks "
+            f"with a dense MLP")
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs and initialisation
+# ---------------------------------------------------------------------------
+
+def _mlp_specs(cfg: ArchConfig) -> Dict[str, TensorSpec]:
+    D, F, dt = cfg.d_model, cfg.d_ff, _dtype(cfg)
+    return {"w_gate": TensorSpec((D, F), dt), "w_up": TensorSpec((D, F), dt),
+            "w_down": TensorSpec((F, D), dt)}
+
+
+def _attn_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = _dtype(cfg)
+    s: Dict[str, Any] = {
+        "wq": TensorSpec((D, Hq, hd), dt),
+        "wk": TensorSpec((D, Hkv, hd), dt),
+        "wv": TensorSpec((D, Hkv, hd), dt),
+        "wo": TensorSpec((Hq, hd, D), dt),
+    }
+    if _norm_has_scale(cfg):
+        s["ln1"] = TensorSpec((D,), dt)
+        s["ln2"] = TensorSpec((D,), dt)
+    if cfg.d_ff > 0:
+        s["mlp"] = _mlp_specs(cfg)
+    return s
+
+
+def _rglru_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    D, Dr, K = cfg.d_model, cfg.d_rec_actual, cfg.conv_width
+    dt = _dtype(cfg)
+    s: Dict[str, Any] = {
+        "w_gate": TensorSpec((D, Dr), dt),
+        "w_rec": TensorSpec((D, Dr), dt),
+        "conv": TensorSpec((K, Dr), dt),
+        "w_a": TensorSpec((Dr, Dr), dt),
+        "w_x": TensorSpec((Dr, Dr), dt),
+        "lam": TensorSpec((Dr,), torch.float32),
+        "w_out": TensorSpec((Dr, D), dt),
+    }
+    if _norm_has_scale(cfg):
+        s["ln1"] = TensorSpec((D,), dt)
+        s["ln2"] = TensorSpec((D,), dt)
+    if cfg.d_ff > 0:
+        s["mlp"] = _mlp_specs(cfg)
+    return s
+
+
+def _block_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
+    if kind in ATTN_KINDS:
+        return _attn_specs(cfg)
+    if kind == "rglru":
+        return _rglru_specs(cfg)
+    raise _unported(kind)
+
+
+def map_tree(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k], path + (k,)) for k in sorted(tree)}
+    return fn(path, tree)
+
+
+def leaves(tree, path=()):
+    """(path, leaf) pairs of a nested dict, keys in sorted order (JAX's
+    flattening order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _stack(specs: Dict[str, Any], n: int) -> Dict[str, Any]:
+    return map_tree(lambda _, s: TensorSpec((n,) + s.shape, s.dtype), specs)
+
+
+def group_layout(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_full_periods, n_remainder_layers)."""
+    per = len(cfg.block_pattern)
+    return cfg.n_layers // per, cfg.n_layers % per
+
+
+def param_specs(cfg: ArchConfig) -> Params:
+    check_supported(cfg)
+    dt = _dtype(cfg)
+    n_per, n_rem = group_layout(cfg)
+    specs: Params = {"embed": TensorSpec((cfg.vocab, cfg.d_model), dt)}
+    specs["blocks"] = {f"p{i}_{kind}": _stack(_block_specs(cfg, kind), n_per)
+                       for i, kind in enumerate(cfg.block_pattern)}
+    if n_rem:
+        specs["rem"] = {f"r{i}_{cfg.block_pattern[i]}": _block_specs(
+            cfg, cfg.block_pattern[i]) for i in range(n_rem)}
+    if _norm_has_scale(cfg):
+        specs["final_norm"] = TensorSpec((cfg.d_model,), dt)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = TensorSpec((cfg.d_model, cfg.vocab), dt)
+    return specs
+
+
+def param_count(cfg: ArchConfig) -> int:
+    return sum(math.prod(s.shape) for _, s in leaves(param_specs(cfg)))
+
+
+def init_params(rng: Union[int, torch.Generator], cfg: ArchConfig,
+                device: DeviceLike = "cuda") -> Params:
+    """Random initialisation by the reference's rules, drawn on ``device``
+    from ``rng`` (a seed, or a :class:`torch.Generator` on that device).
+    The draws are the port's own: to compute what a reference tree
+    computes, carry it across with :func:`repro_torch.convert.lm_params`."""
+    dev = resolve_device(device)
+    specs = param_specs(cfg)
+    if isinstance(rng, torch.Generator):
+        gen = rng
+        if gen.device.type != dev.type:
+            raise ValueError(f"init_params: generator on {gen.device}, "
+                             f"parameters on {dev}")
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(rng))
+    return map_tree(lambda path, s: _init_leaf(gen, "/".join(path), s, dev),
+                specs)
+
+
+def _init_leaf(gen: torch.Generator, name: str, s: TensorSpec,
+               dev: torch.device) -> torch.Tensor:
+    f32 = dict(dtype=torch.float32, device=dev, generator=gen)
+    if name.endswith("lam"):
+        # RG-LRU: a = exp(-c softplus(lam)) in (0.9, 0.999) at r = 0.5
+        a = torch.rand(s.shape, **f32) * (0.999 - 0.9) + 0.9
+        sp = -torch.log(a) / rec.RGLRU_C * 2.0
+        return torch.log(torch.expm1(torch.clamp_min(sp, 1e-6)))
+    if "ln" in name.split("/")[-1] or name.endswith("final_norm"):
+        return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    if name.endswith("conv"):
+        return (torch.randn(s.shape, **f32) * 0.1).to(s.dtype)
+    shape = s.shape
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    if len(shape) >= 3:
+        fan_in = math.prod(shape[:-1]) // (shape[0] if len(shape) == 4
+                                           else 1)
+        fan_in = max(fan_in, 1)
+    std = 0.02 if "embed" in name else 1.0 / math.sqrt(max(fan_in, 1))
+    out = torch.randn(shape, **f32)
+    out.mul_(std)
+    return out.to(s.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Block applications (forward / prefill path)
+# ---------------------------------------------------------------------------
+
+def _window_for(cfg: ArchConfig, kind: str) -> int:
+    if kind in ("attn_local", "attn"):
+        return cfg.sliding_window
+    return 0
+
+
+def _project_qkv(p: Params, h: torch.Tensor):
+    return (einsum("bsd,dhe->bshe", h, p["wq"]),
+            einsum("bsd,dhe->bshe", h, p["wk"]),
+            einsum("bsd,dhe->bshe", h, p["wv"]))
+
+
+def _mlp(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "mlp" not in p:
+        return x
+    h2 = apply_norm(cfg.norm_kind, x, p.get("ln2"))
+    m = p["mlp"]
+    return x + gated_mlp(h2, m["w_gate"], m["w_up"], m["w_down"], act=cfg.act)
+
+
+def _apply_attn_block(cfg: ArchConfig, kind: str, p: Params,
+                      x: torch.Tensor, pos: torch.Tensor):
+    """Returns (x_out, (k, v)); k/v exposed for prefill caching."""
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    q, k, v = _project_qkv(p, h)
+    q = apply_rope(q, pos, theta=cfg.rope_theta)
+    k = apply_rope(k, pos, theta=cfg.rope_theta)
+    att = flash_attention(q, k, v, causal=True,
+                          window=_window_for(cfg, kind),
+                          softcap=cfg.attn_softcap)
+    x = x + einsum("bshe,hed->bsd", att, p["wo"])
+    return _mlp(cfg, p, x), (k, v)
+
+
+def _rglru_mix(cfg: ArchConfig, p: Params, x: torch.Tensor):
+    """The recurrent branch of an rglru block on x: returns x + y, the
+    recurrence's states h [B,S,Dr] and the pre-conv input r."""
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    gate = rec.activation(einsum("bsd,de->bse", h, p["w_gate"]), "gelu")
+    r = einsum("bsd,de->bse", h, p["w_rec"])
+    a, u = rec.rglru_gates(rec.causal_conv1d(r, p["conv"]), p)
+    hs = rec.rglru_scan_ref(a, u)
+    y = einsum("bse,ed->bsd", hs * gate, p["w_out"])
+    return x + y.to(x.dtype), hs, r
+
+
+def _apply_rglru_block(cfg: ArchConfig, p: Params,
+                       x: torch.Tensor) -> torch.Tensor:
+    x, _, _ = _rglru_mix(cfg, p, x)
+    return _mlp(cfg, p, x)
+
+
+def apply_block(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+    if kind in ATTN_KINDS:
+        return _apply_attn_block(cfg, kind, p, x, pos)[0]
+    if kind == "rglru":
+        return _apply_rglru_block(cfg, p, x)
+    raise _unported(kind)
+
+
+def take(tree: Params, j: int) -> Params:
+    """Period ``j`` of a tree stacked over periods."""
+    return map_tree(lambda _, x: x[j], tree)
+
+
+def _layers(cfg: ArchConfig, params: Params):
+    """(cache key group, key, kind, block params) in layer order."""
+    n_per, n_rem = group_layout(cfg)
+    for j in range(n_per):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"p{i}_{kind}"
+            yield ("blocks", j), key, kind, take(params["blocks"][key], j)
+    for i in range(n_rem):
+        kind = cfg.block_pattern[i]
+        key = f"r{i}_{kind}"
+        yield ("rem", None), key, kind, params["rem"][key]
+
+
+# ---------------------------------------------------------------------------
+# Forward path
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: Params, cfg: ArchConfig,
+                 batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings × sqrt(d_model) (in the parameters' type) and
+    positions [1, S] (or the batch's ``positions``)."""
+    check_supported(cfg)
+    if "embeds" in batch or "positions3" in batch:
+        raise NotImplementedError("embeds / positions3 inputs are not "
+                                  "ported yet (ROADMAP A.6)")
+    emb = params["embed"]
+    x = emb[batch["tokens"].to(emb.device).long()]
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                         device=x.device)
+    S = x.shape[1]
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    return x, pos.to(x.device)
+
+
+def unembed(params: Params, cfg: ArchConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    x = apply_norm(cfg.norm_kind, x, params.get("final_norm"))
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x.float(), params["embed"].float().t())
+    else:
+        logits = einsum_f32("bsd,dv->bsv", x, params["lm_head"])
+    if cfg.final_softcap > 0:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence logits. Returns (logits [B,S,V] f32, aux_loss)."""
+    x, pos = embed_inputs(params, cfg, batch)
+    for _, _, kind, p in _layers(cfg, params):
+        x = apply_block(cfg, kind, p, x, pos)
+    return unembed(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Decode cache
+# ---------------------------------------------------------------------------
+
+def _cache_len_for(cfg: ArchConfig, kind: str, max_seq: int) -> int:
+    w = _window_for(cfg, kind)
+    return min(max_seq, w) if w > 0 else max_seq
+
+
+def _block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
+                       max_seq: int) -> Dict[str, TensorSpec]:
+    dt = _dtype(cfg)
+    if kind in ATTN_KINDS:
+        L = _cache_len_for(cfg, kind, max_seq)
+        kv = TensorSpec((batch, L, cfg.n_kv_heads, cfg.head_dim), dt)
+        return {"k": kv, "v": kv}
+    if kind == "rglru":
+        Dr, K = cfg.d_rec_actual, cfg.conv_width
+        return {"h": TensorSpec((batch, Dr), torch.float32),
+                "conv": TensorSpec((batch, K - 1, Dr), dt)}
+    raise _unported(kind)
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> Params:
+    """Decode-state tree: shapes and types of every leaf."""
+    check_supported(cfg)
+    n_per, n_rem = group_layout(cfg)
+    cache: Params = {"blocks": {
+        f"p{i}_{kind}": _stack(_block_cache_specs(cfg, kind, batch, max_seq),
+                               n_per)
+        for i, kind in enumerate(cfg.block_pattern)}}
+    if n_rem:
+        cache["rem"] = {f"r{i}_{cfg.block_pattern[i]}": _block_cache_specs(
+            cfg, cfg.block_pattern[i], batch, max_seq) for i in range(n_rem)}
+    return cache
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               device: DeviceLike = "cuda") -> Params:
+    dev = resolve_device(device)
+    return map_tree(
+        lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+        cache_specs(cfg, batch, max_seq))
+
+
+def _assemble(cfg: ArchConfig, per_layer: Dict[str, list],
+              rem: Dict[str, Params], blocks_default: Params) -> Params:
+    """A cache tree from per-period block caches and remainder caches."""
+    n_per, n_rem = group_layout(cfg)
+    if n_per > 0:
+        blocks = {key: {f: torch.stack([c[f] for c in caches])
+                        for f in caches[0]}
+                  for key, caches in per_layer.items()}
+    else:
+        blocks = blocks_default
+    cache: Params = {"blocks": blocks}
+    if n_rem:
+        cache["rem"] = rem
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+
+def _decode_attn(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor,
+                 pos: int) -> Tuple[torch.Tensor, Params]:
+    """x [B,1,D]; ring-buffer cache write + masked attention."""
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    q, k, v = _project_qkv(p, h)
+    pos_t = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos_t, theta=cfg.rope_theta)
+    k = apply_rope(k, pos_t, theta=cfg.rope_theta)
+    L = c["k"].shape[1]
+    slot = pos % L
+    kc, vc = c["k"].clone(), c["v"].clone()
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    cache_len = torch.full((x.shape[0],), min(pos + 1, L),
+                           dtype=torch.int32, device=x.device)
+    att = decode_attention(q, kc, vc, cache_len, softcap=cfg.attn_softcap)
+    x = x + einsum("bshe,hed->bsd", att, p["wo"])
+    return _mlp(cfg, p, x), {"k": kc, "v": vc}
+
+
+def _decode_rglru(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Params]:
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    y, st = rec.rglru_block_step(h[:, 0], rec.RGLRUState(c["h"], c["conv"]),
+                                 p)
+    x = x + y[:, None, :].to(x.dtype)
+    return _mlp(cfg, p, x), {"h": st.h, "conv": st.conv.to(c["conv"].dtype)}
+
+
+def _decode_block(cfg: ArchConfig, kind: str, p: Params, c: Params,
+                  x: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Params]:
+    if kind in ATTN_KINDS:
+        return _decode_attn(cfg, p, c, x, pos)
+    if kind == "rglru":
+        return _decode_rglru(cfg, p, c, x)
+    raise _unported(kind)
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Params,
+                batch: Dict[str, Any]) -> Tuple[torch.Tensor, Params]:
+    """One decode step. batch: tokens [B,1] and pos (current absolute
+    position: an int or a one-element tensor).  Returns (logits [B,1,V],
+    new cache); the old cache is left as it was."""
+    x, _ = embed_inputs(params, cfg, {"tokens": batch["tokens"]})
+    pos = batch["pos"]
+    pos = int(pos.reshape(-1)[0]) if isinstance(pos, torch.Tensor) \
+        else int(pos)
+    per_layer: Dict[str, list] = {}
+    rem: Params = {}
+    for (group, j), key, kind, p in _layers(cfg, params):
+        c = (take(cache["blocks"][key], j) if group == "blocks"
+             else cache["rem"][key])
+        x, nc = _decode_block(cfg, kind, p, c, x, pos)
+        if group == "blocks":
+            per_layer.setdefault(key, []).append(nc)
+        else:
+            rem[key] = nc
+    return unembed(params, cfg, x), _assemble(cfg, per_layer, rem,
+                                              cache["blocks"])
+
+
+# ---------------------------------------------------------------------------
+# Prefill: forward + cache fill (the serving path's prompt)
+# ---------------------------------------------------------------------------
+
+def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            max_seq: int) -> Tuple[torch.Tensor, Params]:
+    """Process a prompt of length S; returns (logits [B,S,V], filled cache)
+    sized ``max_seq`` (ring-buffered for local attention), exactly as the
+    reference fills it: a local-attention cache holds the last L positions
+    at slot pos % L, a recurrent one the last state and the last K-1
+    pre-conv inputs."""
+    x, pos = embed_inputs(params, cfg, batch)
+    B, S = x.shape[0], x.shape[1]
+    per_layer: Dict[str, list] = {}
+    rem: Params = {}
+    for (group, _), key, kind, p in _layers(cfg, params):
+        if kind in ATTN_KINDS:
+            x, (k, v) = _apply_attn_block(cfg, kind, p, x, pos)
+            L = _cache_len_for(cfg, kind, max_seq)
+            if S >= L:
+                # the ring holds the last L positions, aligned to pos % L
+                kc = torch.roll(k[:, S - L:], S % L, dims=1)
+                vc = torch.roll(v[:, S - L:], S % L, dims=1)
+            else:
+                shape = (B, L, cfg.n_kv_heads, cfg.head_dim)
+                kc = torch.zeros(shape, dtype=_dtype(cfg), device=x.device)
+                vc = torch.zeros_like(kc)
+                kc[:, :S] = k
+                vc[:, :S] = v
+            c = {"k": kc.to(_dtype(cfg)), "v": vc.to(_dtype(cfg))}
+        elif kind == "rglru":
+            x, hs, r = _rglru_mix(cfg, p, x)
+            x = _mlp(cfg, p, x)
+            K = cfg.conv_width
+            conv_state = torch.stack([r[:, S - K + 1 + i]
+                                      for i in range(K - 1)], dim=1)
+            # a copy, so the cache does not keep the whole of hs alive
+            c = {"h": hs[:, -1].float().clone(), "conv": conv_state}
+        else:
+            raise _unported(kind)
+        if group == "blocks":
+            per_layer.setdefault(key, []).append(c)
+        else:
+            rem[key] = c
+    return unembed(params, cfg, x), _assemble(cfg, per_layer, rem, {})

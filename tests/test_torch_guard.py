@@ -19,7 +19,12 @@ from repro_torch.core.fleet_engine import SensorBank  # noqa: E402
 from repro_torch.core.stream import MonitorService  # noqa: E402
 from repro_torch.engine_backend import torch_backend as tb  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fma_chain import fma_chain  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.serve.engine import ServingEngine  # noqa: E402
 from repro_torch.kernels.stream_ingest import stream_ingest  # noqa: E402
 from repro_torch.kernels.stream_ingest_grid import (  # noqa: E402
     stream_ingest_grid)
@@ -61,6 +66,15 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match='device="cpu"'):
         SensorBank.from_catalog("a100", n=4)
     MonitorService(4, device="cpu")      # the explicit request works
+    cfg = get_config("recurrentgemma-9b", reduced=True)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        api.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        api.init_cache(cfg, 2, 16)
+    params = api.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServingEngine(cfg, params, n_slots=1, max_seq=16)
+    ServingEngine(cfg, params, n_slots=1, max_seq=16, device="cpu")
 
 
 def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu():
@@ -78,6 +92,13 @@ def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="cpu or cuda"):
         fma_chain(torch.zeros((256, 128), dtype=torch.float32, device=meta),
                   4)
+    f32 = dict(dtype=torch.float32, device=meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rglru_scan(torch.zeros((2, 5, 8), **f32), torch.zeros((2, 5, 8),
+                                                               **f32))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention(torch.zeros((1, 4, 2, 16), **f32),
+                        *([torch.zeros((1, 4, 1, 16), **f32)] * 2))
 
 
 def test_kernel_build_needs_nvcc_and_says_so(monkeypatch):
