@@ -5,9 +5,9 @@
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the checkout's ``src/``.  Phases, each of which fails the run:
 
-1. print the card's name and power limit, build the seven CUDA kernels
-   (one ``nvcc`` each, started together) and print their registers and
-   spills;
+1. print the card's name and power limit, build the eight CUDA sources
+   of the seven kernels (``flash_attention`` has two routes; one ``nvcc``
+   each, started together) and print their registers and spills;
 2. hold the monitor's two kernels against their plain PyTorch versions on
    the card, at small adversarial shapes and at the main path's slab
    shapes, and time both;
@@ -61,12 +61,16 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    bitwise and ``flash_attention`` against ``blocked_attention`` within
    ``FLASH_TOL`` of each type, at small adversarial shapes (ragged,
    window, soft-cap, MQA/GQA, odd groups and head_dim, rows with no
-   valid key; f32/f16/bf16) and the main path's shapes, timed there
-   beside ``scaled_dot_product_attention`` (8a); then the full model
+   valid key, a last block of 3 positions) in f32, f16 and bf16 and the
+   main path's shapes, every 16-bit case on the tensor-core route and
+   f32 on the CUDA cores; the main shape timed beside
+   ``scaled_dot_product_attention`` and the CUDA-core kernel (8a); then
+   the full model
    (38 layers, bf16, weights drawn on the card): ``prefill`` of 2 × 3000
    tokens (past the 2048-token window), 16 greedy ``decode_step``s and a
    2-slot ``ServingEngine`` answering 4 requests, launches counted over
-   that run (one per rglru and per attention layer of the prefill),
+   that run (one per rglru and per attention layer of the prefill, every
+   attention launch on the tensor cores),
    then ``prefill(2999) + decode_step`` against ``prefill(3000)`` (8b);
    the reduced model in float32 on the card and the CPU, which must
    agree (8c).
@@ -76,6 +80,7 @@ as the last line.  Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -1642,8 +1647,9 @@ def flash_cases(dev):
     """flash_attention inputs on ``dev``: tests/test_kernels.py's shapes
     (GQA, MQA, ragged, non-causal, window, soft-cap, S != T), an odd
     group and head_dim, a 128-head group, rows with no valid key, and the
-    main path's shape at small S, in f32, f16 and bf16; then the main
-    path's own shape.  Returns (label, q, k, v, kwargs)."""
+    main path's shape at small S (300, and 299: the last 128-row block
+    holds 3 positions), each in f32, f16 and bf16; then the main path's
+    own shape.  Returns (label, q, k, v, kwargs)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 31)
 
@@ -1656,18 +1662,22 @@ def flash_cases(dev):
         opts = dict(causal=True, window=0, softcap=0.0)
         opts.update(kw)
         return label, q, k, v, opts
-    out = [case(2, 64, 64, 4, 4, 32), case(2, 100, 100, 4, 2, 32),
-           case(2, 64, 64, 8, 1, 16), case(2, 64, 64, 4, 2, 32, causal=False),
-           case(2, 96, 96, 2, 2, 32, window=17),
-           case(2, 64, 64, 2, 2, 32, softcap=20.0),
-           case(2, 32, 128, 2, 2, 32, causal=False),
-           case(1, 50, 50, 6, 2, 48, window=9, softcap=5.0),
-           case(1, 40, 40, 128, 1, 64),
-           case(1, 64, 16, 4, 2, 32, window=8),
-           case(1, 70, 70, 4, 1, 256, causal=False, window=20)]
+    out = []
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
-        out.append(case(2, 300, 300, 16, 1, 256, dtype, window=64))
-        out.append(case(1, 64, 64, 4, 2, 32, dtype, softcap=30.0))
+        out += [case(2, 64, 64, 4, 4, 32, dtype),
+                case(2, 100, 100, 4, 2, 32, dtype),
+                case(2, 64, 64, 8, 1, 16, dtype),
+                case(2, 64, 64, 4, 2, 32, dtype, causal=False),
+                case(2, 96, 96, 2, 2, 32, dtype, window=17),
+                case(2, 64, 64, 2, 2, 32, dtype, softcap=20.0),
+                case(2, 32, 128, 2, 2, 32, dtype, causal=False),
+                case(1, 50, 50, 6, 2, 48, dtype, window=9, softcap=5.0),
+                case(1, 40, 40, 128, 1, 64, dtype),
+                case(1, 64, 16, 4, 2, 32, dtype, window=8),
+                case(1, 70, 70, 4, 1, 256, dtype, causal=False, window=20),
+                case(2, 300, 300, 16, 1, 256, dtype, window=64),
+                case(2, 299, 299, 16, 1, 256, dtype, window=64),
+                case(1, 64, 64, 4, 2, 32, dtype, softcap=30.0)]
     b, s, hq, hkv, d = LM_ATTN_SHAPE
     out.append(case(b, s, s, hq, hkv, d, torch.bfloat16,
                     window=LM_WINDOW))
@@ -1677,10 +1687,20 @@ def flash_cases(dev):
 def flash_check(q, k, v, kw):
     """The kernel against blocked_attention on the same card inputs,
     within FLASH_TOL of its type (absolute and relative, the reference
-    tests' tolerances); returns the largest absolute difference."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    tests' tolerances), on the route its type takes: every 16-bit case
+    here on the tensor cores, f32 on the CUDA cores.  Returns the largest
+    absolute difference."""
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models.layers import blocked_attention
-    got = flash_attention(q, k, v, **kw)
+    want_route = (kfa.CUDA_CORES if q.dtype == torch.float32
+                  else kfa.TENSOR_CORES)
+    before = dict(kfa.flash_attention.launches_by_route)
+    got = kfa.flash_attention(q, k, v, **kw)
+    before[want_route] += 1
+    check(kfa.flash_attention.launches_by_route == before,
+          f"flash_attention at q {list(q.shape)} {q.dtype}: launches by "
+          f"route {kfa.flash_attention.launches_by_route}, expected one "
+          f"more on {want_route}")
     want = blocked_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and got.shape == want.shape,
@@ -1705,6 +1725,54 @@ def attention_pairs(s, t, window, causal=True):
     if window > 0:
         keep &= k > q - window
     return int(keep.sum())
+
+
+def flash_tc_work(q, k, kw):
+    """What the tensor-core kernel executes at this shape, walking its
+    blocks as csrc/flash_attention_tc.cu does (128 rows, 64-key tiles
+    from the block's first visible key): the tiles, the FLOPs of its two
+    products over them (padding rows, masked keys and the columns up to
+    its instance's head_dim included) and the K/V bytes its TMA loads
+    read, from L2 or from memory."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    gb = min(g, 128)
+    bq = 128 // gb
+    dmax = 64 if d <= 64 else 128 if d <= 128 else 256
+    i0 = np.arange(0, s, bq)
+    q_hi = np.minimum(i0 + bq, s) - 1
+    k_begin = (np.maximum(0, i0 - kw["window"] + 1) if kw["window"] > 0
+               else np.zeros_like(i0))
+    k_end = np.minimum(t, q_hi + 1) if kw["causal"] else np.full_like(i0, t)
+    tiles = np.where(k_end > k_begin, (k_end - k_begin + 63) // 64, 0)
+    n = int(tiles.sum()) * -(-g // gb) * hkv * b
+    return n, n * 4 * 128 * 64 * dmax, n * 2 * 64 * dmax * q.element_size()
+
+
+def flash_cuda_cores_ms(q, k, v, kw):
+    """The CUDA-core kernel on the same 16-bit inputs, the route they took
+    before the tensor-core kernel, launched through its library (the
+    wrapper sends them to the tensor cores): its time, and its largest
+    difference from the wrapper's output."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels import flash_attention as kfa
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+
+    def run():
+        _launch.launch(kfa.KERNELS[kfa.CUDA_CORES], q.device, [q, k, v, out],
+                       *(ctypes.c_int(n) for n in (b, s, t, hq, hkv, d)),
+                       ctypes.c_int(kfa.DTYPE_CODES[q.dtype]),
+                       ctypes.c_int(int(kw["causal"])),
+                       ctypes.c_int(kw["window"]),
+                       ctypes.c_float(kw["softcap"]),
+                       ctypes.c_float(d ** -0.5))
+    ms = time_ms(run, 3)
+    diff = float((out.float() - kfa.flash_attention(q, k, v, **kw).float())
+                 .abs().max())
+    return ms, diff
 
 
 def sdpa_ms(q, k, v, window):
@@ -1744,6 +1812,7 @@ def lm_kernels(dev):
     then the main path's shapes timed.  Returns the two records (without
     launches)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
     from repro_torch.models.layers import blocked_attention
@@ -1768,16 +1837,20 @@ def lm_kernels(dev):
 
     flash = flash_cases(dev)
     errs = {}
+    kfa.reset_launches()
     for label, q, k, v, kw in flash:
         errs[q.dtype] = max(errs.get(q.dtype, 0.0), flash_check(q, k, v, kw))
     tols = ", ".join(f"{str(t)[6:]} {v:g}" for t, v in FLASH_TOL.items())
     log(f"flash_attention vs blocked_attention at {len(flash)} shapes, "
-        f"within {tols}; "
-        f"largest differences: " + ", ".join(
+        f"within {tols}; launches by route "
+        f"{flash_attention.launches_by_route} (every 16-bit case on the "
+        f"tensor cores); largest differences: " + ", ".join(
             f"{str(t)[6:]} {e:.3e}" for t, e in errs.items()))
     _, q, k, v, kw = flash[-1]
     b, s, hq, d = q.shape
-    fl_ms = time_ms(lambda: flash_attention(q, k, v, **kw), 5)
+    main_route = kfa.route(q.dtype, d)
+    fl_ms = time_ms(lambda: flash_attention(q, k, v, **kw), 20)
+    cc_ms, cc_diff = flash_cuda_cores_ms(q, k, v, kw)
     fl_plain_ms = time_ms(lambda: blocked_attention(q, k, v, **kw), 1)
     lib_ms, lib_diff, lib_how = sdpa_ms(q, k, v, kw["window"])
     pairs = attention_pairs(s, s, kw["window"])
@@ -1785,14 +1858,23 @@ def lm_kernels(dev):
     ops_ms = flops / BF16_OPS_PER_S * 1e3
     fl_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bytes_ms = fl_bytes / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    n_tiles, exec_flops, kv_bytes = flash_tc_work(q, k, kw)
     log(f"flash_attention at q [{b}, {s}, {hq}, {d}] k/v "
-        f"{list(k.shape)} bf16, window {kw['window']}: kernel {fl_ms:.3f} "
-        f"ms, plain {fl_plain_ms:.3f} ms, scaled_dot_product_attention "
-        f"{lib_ms:.3f} ms ({lib_how}; largest difference {lib_diff:.3e}), "
-        f"bound "
-        f"{max(ops_ms, bytes_ms):.4f} ms ({pairs:,} pairs per head, "
-        f"{flops:.4e} FLOPs at the bf16 tensor rate; bytes "
-        f"{bytes_ms:.4f} ms), {max(ops_ms, bytes_ms) / fl_ms:.1%} of it")
+        f"{list(k.shape)} bf16, window {kw['window']}, route {main_route}: "
+        f"kernel {fl_ms:.4f} ms, {bound / fl_ms:.1%} of the bound "
+        f"{bound:.4f} ms ({pairs:,} pairs per head, {flops:.4e} FLOPs at "
+        f"the bf16 tensor rate; bytes {bytes_ms:.4f} ms); "
+        f"scaled_dot_product_attention {lib_ms:.3f} ms ({lib_how}; largest "
+        f"difference {lib_diff:.3e}), {lib_ms / fl_ms:.2f}x the kernel; the "
+        f"CUDA-core kernel on the same inputs {cc_ms:.3f} ms (largest "
+        f"difference {cc_diff:.3e}); plain {fl_plain_ms:.3f} ms; executed "
+        f"{n_tiles:,} 64-key tiles of 128 rows, {exec_flops:.4e} FLOPs "
+        f"({exec_flops / fl_ms / 1e9:.1f} TFLOP/s), K/V through TMA "
+        f"{kv_bytes / 1e9:.3f} GB ({kv_bytes / fl_ms / 1e9:.2f} TB/s from "
+        f"L2 or memory)")
+    check(main_route == kfa.TENSOR_CORES, f"the main shape takes the "
+          f"{main_route} route")
     src = "src/repro_torch/kernels/csrc/"
     return [
         dict(name="rglru_scan", route="cuda",
@@ -1802,12 +1884,17 @@ def lm_kernels(dev):
              bound_ms=scan_bound, bound_by="bytes", library_ms=None,
              shape=scan_shape, bytes=scan_bytes),
         dict(name="flash_attention", route="cuda",
-             source=src + _build.SOURCES["flash_attention"],
+             source=src + _build.SOURCES[kfa.KERNELS[main_route]],
              replaces=REPLACES["flash_attention"], launches=0,
              max_abs_err=max(errs.values()), ms=fl_ms, plain_ms=fl_plain_ms,
-             bound_ms=max(ops_ms, bytes_ms),
+             bound_ms=bound,
              bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-             library_ms=lib_ms, shape=[list(q.shape), list(k.shape)],
+             library_ms=lib_ms, main_route=main_route,
+             routes={r: dict(source=src + _build.SOURCES[n], launches=0)
+                     for r, n in kfa.KERNELS.items()},
+             cuda_cores_ms=cc_ms, cuda_cores_max_abs_diff=cc_diff,
+             executed_tiles=n_tiles, executed_flops=exec_flops,
+             kv_bytes_tma=kv_bytes, shape=[list(q.shape), list(k.shape)],
              window=kw["window"], pairs_per_head=pairs, flops=flops,
              max_abs_err_by_type={str(t)[6:]: e for t, e in errs.items()},
              library_max_abs_diff=lib_diff, library_call=(
@@ -1817,6 +1904,7 @@ def lm_kernels(dev):
 def lm_serving(dev):
     """Phase 8; returns the records of rglru_scan and flash_attention."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.models import api
@@ -1855,13 +1943,14 @@ def lm_serving(dev):
     torch.cuda.synchronize()
 
     rglru_scan.launches = 0
-    flash_attention.launches = 0
+    kfa.reset_launches()
     t0 = time.perf_counter()
     logits, cache = tf.prefill(params, cfg, {"tokens": toks},
                                max_seq=LM_MAX_SEQ)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     per_prefill = (rglru_scan.launches, flash_attention.launches)
+    prefill_routes = dict(flash_attention.launches_by_route)
     check(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, cfg.vocab)
           and logits.dtype == torch.float32, f"prefill logits "
           f"{logits.dtype}{tuple(logits.shape)}")
@@ -1895,6 +1984,7 @@ def lm_serving(dev):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = (rglru_scan.launches, flash_attention.launches)
+    routes = dict(flash_attention.launches_by_route)
     peak = torch.cuda.max_memory_allocated(dev)
     ticks = eng.ticks
     check(len(done) == LM_SERVE_REQUESTS and all(
@@ -1903,7 +1993,11 @@ def lm_serving(dev):
     check(per_prefill == (n_rglru, n_attn), f"a prefill launched rglru_scan "
           f"{per_prefill[0]} and flash_attention {per_prefill[1]} times, "
           f"not once per layer ({n_rglru}, {n_attn})")
-    check(launches == per_prefill, f"decode launched kernels: {launches}")
+    check(prefill_routes[kfa.TENSOR_CORES] == n_attn, f"a prefill's "
+          f"flash_attention launches by route: {prefill_routes}, not all "
+          f"{n_attn} on the tensor cores")
+    check(launches == per_prefill and routes == prefill_routes,
+          f"decode launched kernels: {launches}, {routes}")
     steps = sorted(step_s)
     log(f"8b main path: prefill {LM_BATCH} x {LM_PROMPT} tokens in "
         f"{prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / prefill_s:,.0f} "
@@ -1914,12 +2008,13 @@ def lm_serving(dev):
         f"ServingEngine, {LM_SERVE_SLOTS} slots, {LM_SERVE_REQUESTS} requests "
         f"of {LM_SERVE_PROMPT} + {LM_SERVE_NEW} tokens: {ticks} ticks in "
         f"{serve_s:.3f} s, tokens {[r.generated for r in reqs]}; launches "
-        f"rglru_scan {launches[0]}, flash_attention {launches[1]}; peak "
+        f"rglru_scan {launches[0]}, flash_attention {launches[1]} {routes}; "
+        f"peak "
         f"memory {peak / 1e9:.2f} GB")
 
     # -- 8b. prefill(S-1) + decode_step against prefill(S) -------------------
     rglru_scan.launches = 0
-    flash_attention.launches = 0
+    kfa.reset_launches()
     lg, c = tf.prefill(params, cfg, {"tokens": toks[:, :-1]},
                        max_seq=LM_MAX_SEQ)
     del lg
@@ -1963,6 +2058,8 @@ def lm_serving(dev):
                  reduced_max_abs_diff=worst)
     scan_rec.update(launches=launches[0], **extra)
     flash_rec.update(launches=launches[1])
+    for r, n in routes.items():
+        flash_rec["routes"][r]["launches"] = n
     return [scan_rec, flash_rec]
 
 

@@ -31,6 +31,7 @@ SOURCES = {
     "fma_chain": "fma_chain.cu",
     "rglru_scan": "rglru_scan.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_tc": "flash_attention_tc.cu",
 }
 
 # -fmad=false keeps every product separately rounded, as the plain

@@ -22,7 +22,8 @@ the JAX package is pinned to its CPU backend at "highest" matmul precision
 
 The CUDA kernels run only on the card: their tests skip here, and
 ``chip_smoke.py`` phase 8a holds them against their plain versions at the
-main path's shapes.
+main path's shapes.  Which of ``flash_attention``'s two kernels a CUDA
+input takes is a pure function of its type and ``head_dim``, tested here.
 """
 import pathlib
 import re
@@ -227,7 +228,8 @@ def test_plain_flash_attention_rows_without_a_valid_key_are_zero():
 
 @pytest.mark.parametrize("name, struct, fields", [
     ("rglru_scan", "ScanArgs", ["a", "u", "h"]),
-    ("flash_attention", "FlashArgs", ["q", "k", "v", "o"])])
+    ("flash_attention", "FlashArgs", ["q", "k", "v", "o"]),
+    ("flash_attention_tc", "FlashArgs", ["q", "k", "v", "o"])])
 def test_kernel_sources_take_the_wrappers_pointers(name, struct, fields):
     src = (_build.CSRC / _build.SOURCES[name]).read_text()
     body = re.search(r"struct %s \{(.*?)\};" % struct, src, re.S).group(1)
@@ -236,6 +238,67 @@ def test_kernel_sources_take_the_wrappers_pointers(name, struct, fields):
         fields)
     cmd = " ".join(_build.nvcc_command(name, pathlib.Path("l.so")))
     assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+@pytest.mark.parametrize("needle", [
+    "wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+    "mbarrier.arrive.expect_tx", "setmaxnreg.dec", "setmaxnreg.inc",
+    "CU_TENSOR_MAP_SWIZZLE_128B", "cuTensorMapEncodeTiled"])
+def test_tensor_core_flash_source_uses_wgmma_and_tma(needle):
+    """The 16-bit route is written for Hopper's tensor cores: wgmma
+    products, K/V tiles by TMA into a ring of mbarriers, registers moved
+    to the consumers with setmaxnreg; cuTensorMapEncodeTiled is looked
+    up through the CUDA runtime (no -lcuda on the command line)."""
+    src = (_build.CSRC / _build.SOURCES["flash_attention_tc"]).read_text()
+    assert needle in src
+    cmd = _build.nvcc_command("flash_attention_tc", pathlib.Path("l.so"))
+    assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
+    assert not any(a.startswith("-lcuda") for a in cmd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128, 256])
+def test_flash_route_puts_16_bit_inputs_on_the_tensor_cores(dtype, d):
+    assert kfa.route(dtype, d) == kfa.TENSOR_CORES
+    assert kfa.KERNELS[kfa.route(dtype, d)] == "flash_attention_tc"
+
+
+@pytest.mark.parametrize("dtype, d", [
+    (torch.float32, 16), (torch.float32, 64), (torch.float32, 256),
+    (torch.float32, 40), (torch.bfloat16, 40), (torch.float16, 40),
+    (torch.bfloat16, 8), (torch.float16, 200)])
+def test_flash_route_keeps_f32_and_odd_head_dims_on_the_cuda_cores(dtype,
+                                                                   d):
+    assert kfa.route(dtype, d) == kfa.CUDA_CORES
+    assert kfa.KERNELS[kfa.route(dtype, d)] == "flash_attention"
+
+
+def test_flash_routes_name_built_kernels_and_start_at_zero():
+    assert set(kfa.KERNELS.values()) <= set(_build.SOURCES)
+    saved = (kfa.flash_attention.launches,
+             dict(kfa.flash_attention.launches_by_route))
+    try:
+        kfa.flash_attention.launches = 7
+        kfa.flash_attention.launches_by_route[kfa.TENSOR_CORES] = 7
+        kfa.reset_launches()
+        assert kfa.flash_attention.launches == 0
+        assert kfa.flash_attention.launches_by_route == {
+            kfa.TENSOR_CORES: 0, kfa.CUDA_CORES: 0}
+    finally:
+        kfa.flash_attention.launches = saved[0]
+        kfa.flash_attention.launches_by_route = saved[1]
+
+
+def test_flash_tma_inputs_are_copied_to_an_aligned_buffer():
+    """TMA takes 16-byte aligned addresses: a view 2 bytes into its
+    storage is copied, an aligned one passes as it is."""
+    base = torch.arange(1 + 4 * 16, dtype=torch.float32).to(torch.bfloat16)
+    odd = base[1:].view(1, 4, 1, 16)
+    assert odd.data_ptr() % 16 != 0
+    fixed = kfa._aligned(odd)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, odd)
+    even = torch.zeros((1, 4, 1, 16), dtype=torch.bfloat16)
+    assert kfa._aligned(even) is even
 
 
 def test_rglru_kernel_source_writes_the_fma_out():
@@ -274,16 +337,30 @@ def test_cuda_rglru_scan_matches_plain_bitwise(cuda, b, s, d):
 @pytest.mark.parametrize("s, t, hq, hkv, d, kw", FLASH_CASES + [
     (50, 50, 6, 2, 48, dict(window=9, softcap=5.0)),
     (40, 40, 128, 1, 64, {}),
-    (70, 70, 16, 1, 256, dict(window=20))],
-    ids=FLASH_IDS + ["odd-group", "wide-group", "head-256"])
+    (70, 70, 16, 1, 256, dict(window=20)),
+    (300, 300, 16, 1, 256, dict(window=64)),
+    (299, 299, 16, 1, 256, dict(window=64)),
+    (50, 50, 4, 2, 40, dict(window=9))],
+    ids=FLASH_IDS + ["odd-group", "wide-group", "head-256", "main-300",
+                     "main-299", "head-40"])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, s, t, hq, hkv, d,
                                             kw):
+    """Every case on the route its type and head_dim give: bf16/f16 on
+    the tensor cores where head_dim is a multiple of 16 (all but
+    head-40), the rest on the CUDA cores; main-299 leaves the last block
+    3 of its 8 positions."""
     q, k, v = (x.to(cuda, dtype) for x in _t(*_qkv(2, s, t, hq, hkv, d,
                                                     s + d)))
+    path = (kfa.TENSOR_CORES if dtype != torch.float32 and d % 16 == 0
+            else kfa.CUDA_CORES)
+    assert kfa.route(dtype, d) == path
     n0 = kfa.flash_attention.launches
+    by_route = dict(kfa.flash_attention.launches_by_route)
     got = kfa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert kfa.flash_attention.launches == n0 + 1
+    by_route[path] += 1
+    assert kfa.flash_attention.launches_by_route == by_route
     want = blocked_attention(q, k, v, **kw)
     assert got.dtype == dtype
     tol = CUDA_TOL[dtype]
