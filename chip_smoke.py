@@ -63,8 +63,10 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    window, soft-cap, MQA/GQA, odd groups and head_dim, rows with no
    valid key, a last block of 3 positions) in f32, f16 and bf16 and the
    main path's shapes, every 16-bit case on the tensor-core route and
-   f32 on the CUDA cores; the main shape timed beside
-   ``scaled_dot_product_attention`` and the CUDA-core kernel (8a); then
+   f32 on the CUDA cores, then a 16-bit head_dim of 40 on the CUDA
+   cores; the main shape within a relative L2 of ``FLASH_MAIN_REL_L2``
+   too, and timed beside ``scaled_dot_product_attention`` and the
+   CUDA-core kernel (8a); then
    the full model
    (38 layers, bf16, weights drawn on the card): ``prefill`` of 2 × 3000
    tokens (past the 2048-token window), 16 greedy ``decode_step``s and a
@@ -80,7 +82,6 @@ as the last line.  Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import math
 import os
@@ -183,6 +184,9 @@ BF16_OPS_PER_S = 989e12
 #: two differ in the order of the f32 sums and where a probability
 #: rounds to the input type
 FLASH_TOL = {torch.float32: 2e-5, torch.float16: 4e-3, torch.bfloat16: 2e-2}
+#: relative L2 difference from blocked_attention at the main shape, beside
+#: the elementwise bar (a typical output there is ~0.03, near bf16's bar)
+FLASH_MAIN_REL_L2 = 1e-2
 #: 8b: prefill(S-1) + decode_step against prefill(S), relative L2 of the
 #: last position's logits: the two paths round the bf16 residual stream
 #: (8 bits of mantissa) at other places over 38 layers
@@ -1649,7 +1653,9 @@ def flash_cases(dev):
     group and head_dim, a 128-head group, rows with no valid key, and the
     main path's shape at small S (300, and 299: the last 128-row block
     holds 3 positions), each in f32, f16 and bf16; then the main path's
-    own shape.  Returns (label, q, k, v, kwargs)."""
+    own shape.  Returns that list of (label, q, k, v, kwargs), and a
+    second one: a head_dim of 40 in f16 and bf16, the 16-bit inputs that
+    stay on the CUDA cores."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 31)
 
@@ -1681,18 +1687,39 @@ def flash_cases(dev):
     b, s, hq, hkv, d = LM_ATTN_SHAPE
     out.append(case(b, s, s, hq, hkv, d, torch.bfloat16,
                     window=LM_WINDOW))
-    return out
+    odd_d = [case(1, 50, 50, 4, 2, 40, dtype, window=9)
+             for dtype in (torch.float16, torch.bfloat16)]
+    return out, odd_d
+
+
+def flash_close(got, want, what):
+    """``got`` within FLASH_TOL of its type of ``want`` (absolute and
+    relative, the reference tests' tolerances) and finite.  Returns the
+    largest absolute difference and the relative L2 difference."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: output {got.dtype}{tuple(got.shape)}, plain "
+          f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    tol = FLASH_TOL[got.dtype]
+    bad = (g - w).abs() > tol + tol * w.abs()
+    check(not bool(bad.any()) and bool(torch.isfinite(g).all()),
+          f"{what}: {int(bad.sum())} outputs off by more than {tol:g} "
+          f"(largest {err:.3e})")
+    return err, rel
 
 
 def flash_check(q, k, v, kw):
-    """The kernel against blocked_attention on the same card inputs,
-    within FLASH_TOL of its type (absolute and relative, the reference
-    tests' tolerances), on the route its type takes: every 16-bit case
-    here on the tensor cores, f32 on the CUDA cores.  Returns the largest
-    absolute difference."""
+    """The kernel against blocked_attention on the same card inputs
+    (:func:`flash_close`), on the route its type and head_dim take:
+    bf16/f16 with head_dim a multiple of 16 on the tensor cores, the rest
+    on the CUDA cores.  Returns the largest absolute and the relative L2
+    difference."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models.layers import blocked_attention
-    want_route = (kfa.CUDA_CORES if q.dtype == torch.float32
+    d = q.shape[3]
+    want_route = (kfa.CUDA_CORES if q.dtype == torch.float32 or d % 16
                   else kfa.TENSOR_CORES)
     before = dict(kfa.flash_attention.launches_by_route)
     got = kfa.flash_attention(q, k, v, **kw)
@@ -1703,18 +1730,8 @@ def flash_check(q, k, v, kw):
           f"more on {want_route}")
     want = blocked_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    check(got.dtype == want.dtype and got.shape == want.shape,
-          f"flash_attention output {got.dtype}{tuple(got.shape)}, plain "
-          f"{want.dtype}{tuple(want.shape)}")
-    g, w = got.float(), want.float()
-    err = float((g - w).abs().max())
-    tol = FLASH_TOL[q.dtype]
-    bad = (g - w).abs() > tol + tol * w.abs()
-    check(not bool(bad.any()) and bool(torch.isfinite(g).all()),
-          f"flash_attention at q {list(q.shape)} k {list(k.shape)} "
-          f"{q.dtype} {kw}: {int(bad.sum())} outputs off by more than "
-          f"{tol:g} (largest {err:.3e})")
-    return err
+    return flash_close(got, want, f"flash_attention at q {list(q.shape)} "
+                       f"k {list(k.shape)} {q.dtype} {kw}")
 
 
 def attention_pairs(s, t, window, causal=True):
@@ -1728,12 +1745,13 @@ def attention_pairs(s, t, window, causal=True):
 
 
 def flash_tc_work(q, k, kw):
-    """What the tensor-core kernel executes at this shape, walking its
-    blocks as csrc/flash_attention_tc.cu does (128 rows, 64-key tiles
-    from the block's first visible key): the tiles, the FLOPs of its two
-    products over them (padding rows, masked keys and the columns up to
-    its instance's head_dim included) and the K/V bytes its TMA loads
-    read, from L2 or from memory."""
+    """A model, from the shape alone, of what the tensor-core kernel
+    executes, walking its blocks as csrc/flash_attention_tc.cu is written
+    to (128 rows, 64-key tiles from the block's first visible key): the
+    tiles, the FLOPs of its two products over them (padding rows, masked
+    keys and the columns up to its instance's head_dim included) and the
+    K/V bytes its TMA loads read, from L2 or from memory.  Nothing on the
+    card counts these."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -1750,29 +1768,19 @@ def flash_tc_work(q, k, kw):
     return n, n * 4 * 128 * 64 * dmax, n * 2 * 64 * dmax * q.element_size()
 
 
-def flash_cuda_cores_ms(q, k, v, kw):
+def flash_cuda_cores_ms(q, k, v, kw, want):
     """The CUDA-core kernel on the same 16-bit inputs, the route they took
-    before the tensor-core kernel, launched through its library (the
-    wrapper sends them to the tensor cores): its time, and its largest
-    difference from the wrapper's output."""
-    from repro_torch.kernels import _launch
+    before the tensor-core kernel, launched through the wrapper's own
+    launch (the wrapper sends them to the tensor cores; this counts no
+    launch): its time, and its largest absolute and relative L2
+    difference from ``want``, blocked_attention's output, within
+    FLASH_TOL."""
     from repro_torch.kernels import flash_attention as kfa
-    b, s, hq, d = q.shape
-    t, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-
-    def run():
-        _launch.launch(kfa.KERNELS[kfa.CUDA_CORES], q.device, [q, k, v, out],
-                       *(ctypes.c_int(n) for n in (b, s, t, hq, hkv, d)),
-                       ctypes.c_int(kfa.DTYPE_CODES[q.dtype]),
-                       ctypes.c_int(int(kw["causal"])),
-                       ctypes.c_int(kw["window"]),
-                       ctypes.c_float(kw["softcap"]),
-                       ctypes.c_float(d ** -0.5))
-    ms = time_ms(run, 3)
-    diff = float((out.float() - kfa.flash_attention(q, k, v, **kw).float())
-                 .abs().max())
-    return ms, diff
+    ms = time_ms(lambda: kfa._launch_route(kfa.CUDA_CORES, q, k, v, out,
+                                           **kw), 3)
+    return (ms, *flash_close(out, want, f"the CUDA-core flash_attention at "
+                             f"q {list(q.shape)} {q.dtype} {kw}"))
 
 
 def sdpa_ms(q, k, v, window):
@@ -1835,22 +1843,38 @@ def lm_kernels(dev):
         f"{scan_plain_ms:.3f} ms, bound {scan_bound:.4f} ms (bytes: "
         f"{scan_bytes:,}), {scan_bound / scan_ms:.1%} of it")
 
-    flash = flash_cases(dev)
+    flash, odd_d = flash_cases(dev)
     errs = {}
     kfa.reset_launches()
     for label, q, k, v, kw in flash:
-        errs[q.dtype] = max(errs.get(q.dtype, 0.0), flash_check(q, k, v, kw))
+        err, main_rel = flash_check(q, k, v, kw)
+        errs[q.dtype] = max(errs.get(q.dtype, 0.0), err)
     tols = ", ".join(f"{str(t)[6:]} {v:g}" for t, v in FLASH_TOL.items())
     log(f"flash_attention vs blocked_attention at {len(flash)} shapes, "
         f"within {tols}; launches by route "
         f"{flash_attention.launches_by_route} (every 16-bit case on the "
         f"tensor cores); largest differences: " + ", ".join(
             f"{str(t)[6:]} {e:.3e}" for t, e in errs.items()))
+    check(main_rel <= FLASH_MAIN_REL_L2, f"flash_attention at the main "
+          f"shape: relative L2 difference {main_rel:.3e} from "
+          f"blocked_attention, above {FLASH_MAIN_REL_L2:g}")
+    kfa.reset_launches()
+    odd_errs = {str(q.dtype)[6:]: flash_check(q, k, v, kw)[0]
+                for _, q, k, v, kw in odd_d}
+    check(flash_attention.launches_by_route[kfa.CUDA_CORES] == len(odd_d),
+          f"16-bit head_dim 40: launches by route "
+          f"{flash_attention.launches_by_route}")
+    log(f"flash_attention's CUDA-core route with 16-bit inputs (head_dim "
+        f"40, not a multiple of 16) vs blocked_attention: "
+        + "; ".join(label for label, *_ in odd_d) + ", within FLASH_TOL, "
+        f"largest differences {odd_errs}")
     _, q, k, v, kw = flash[-1]
     b, s, hq, d = q.shape
     main_route = kfa.route(q.dtype, d)
     fl_ms = time_ms(lambda: flash_attention(q, k, v, **kw), 20)
-    cc_ms, cc_diff = flash_cuda_cores_ms(q, k, v, kw)
+    want = blocked_attention(q, k, v, **kw)
+    cc_ms, cc_err, cc_rel = flash_cuda_cores_ms(q, k, v, kw, want)
+    del want
     fl_plain_ms = time_ms(lambda: blocked_attention(q, k, v, **kw), 1)
     lib_ms, lib_diff, lib_how = sdpa_ms(q, k, v, kw["window"])
     pairs = attention_pairs(s, s, kw["window"])
@@ -1864,15 +1888,18 @@ def lm_kernels(dev):
         f"{list(k.shape)} bf16, window {kw['window']}, route {main_route}: "
         f"kernel {fl_ms:.4f} ms, {bound / fl_ms:.1%} of the bound "
         f"{bound:.4f} ms ({pairs:,} pairs per head, {flops:.4e} FLOPs at "
-        f"the bf16 tensor rate; bytes {bytes_ms:.4f} ms); "
-        f"scaled_dot_product_attention {lib_ms:.3f} ms ({lib_how}; largest "
-        f"difference {lib_diff:.3e}), {lib_ms / fl_ms:.2f}x the kernel; the "
-        f"CUDA-core kernel on the same inputs {cc_ms:.3f} ms (largest "
-        f"difference {cc_diff:.3e}); plain {fl_plain_ms:.3f} ms; executed "
-        f"{n_tiles:,} 64-key tiles of 128 rows, {exec_flops:.4e} FLOPs "
-        f"({exec_flops / fl_ms / 1e9:.1f} TFLOP/s), K/V through TMA "
-        f"{kv_bytes / 1e9:.3f} GB ({kv_bytes / fl_ms / 1e9:.2f} TB/s from "
-        f"L2 or memory)")
+        f"the bf16 tensor rate; bytes {bytes_ms:.4f} ms); relative L2 "
+        f"difference from blocked_attention {main_rel:.3e} (at most "
+        f"{FLASH_MAIN_REL_L2:g}); scaled_dot_product_attention "
+        f"{lib_ms:.3f} ms ({lib_how}; largest difference {lib_diff:.3e}), "
+        f"{lib_ms / fl_ms:.2f}x the kernel; the CUDA-core kernel on the "
+        f"same inputs {cc_ms:.3f} ms (from blocked_attention: largest "
+        f"difference {cc_err:.3e}, relative L2 {cc_rel:.3e}); plain "
+        f"{fl_plain_ms:.3f} ms.  Modelled from the shape, not counted on "
+        f"the card (flash_tc_work): {n_tiles:,} 64-key tiles of 128 rows, "
+        f"{exec_flops:.4e} FLOPs ({exec_flops / fl_ms / 1e9:.1f} TFLOP/s "
+        f"at the measured time), K/V through TMA {kv_bytes / 1e9:.3f} GB "
+        f"({kv_bytes / fl_ms / 1e9:.2f} TB/s)")
     check(main_route == kfa.TENSOR_CORES, f"the main shape takes the "
           f"{main_route} route")
     src = "src/repro_torch/kernels/csrc/"
@@ -1892,9 +1919,10 @@ def lm_kernels(dev):
              library_ms=lib_ms, main_route=main_route,
              routes={r: dict(source=src + _build.SOURCES[n], launches=0)
                      for r, n in kfa.KERNELS.items()},
-             cuda_cores_ms=cc_ms, cuda_cores_max_abs_diff=cc_diff,
-             executed_tiles=n_tiles, executed_flops=exec_flops,
-             kv_bytes_tma=kv_bytes, shape=[list(q.shape), list(k.shape)],
+             main_shape_rel_l2=main_rel, cuda_cores_ms=cc_ms,
+             cuda_cores_max_abs_err=cc_err,
+             max_abs_err_16_bit_cuda_cores=odd_errs,
+             shape=[list(q.shape), list(k.shape)],
              window=kw["window"], pairs_per_head=pairs, flops=flops,
              max_abs_err_by_type={str(t)[6:]: e for t, e in errs.items()},
              library_max_abs_diff=lib_diff, library_call=(

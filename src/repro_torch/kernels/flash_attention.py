@@ -98,15 +98,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(qc)
     if out.numel() == 0:
         return out
-    _launch.launch(KERNELS[path], q.device, [qc, kc, vc, out],
+    _launch_route(path, qc, kc, vc, out, causal=causal, window=window,
+                  softcap=softcap)
+    flash_attention.launches += 1
+    flash_attention.launches_by_route[path] += 1
+    return out
+
+
+def _launch_route(path: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, out: torch.Tensor, *, causal: bool,
+                  window: int, softcap: float) -> None:
+    """Launch route ``path``'s kernel on checked contiguous CUDA tensors,
+    writing ``out``; counts nothing.  :func:`flash_attention` launches
+    through it, and so can a comparison of the two routes on the same
+    inputs."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    _launch.launch(KERNELS[path], q.device, [q, k, v, out],
                    *(ctypes.c_int(n) for n in (B, S, T, Hq, Hkv, D)),
                    ctypes.c_int(DTYPE_CODES[q.dtype]),
                    ctypes.c_int(int(bool(causal))), ctypes.c_int(int(window)),
                    ctypes.c_float(float(softcap)),
                    ctypes.c_float(D ** -0.5))
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[path] += 1
-    return out
 
 
 def reset_launches() -> None:

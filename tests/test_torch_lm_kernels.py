@@ -25,6 +25,7 @@ The CUDA kernels run only on the card: their tests skip here, and
 main path's shapes.  Which of ``flash_attention``'s two kernels a CUDA
 input takes is a pure function of its type and ``head_dim``, tested here.
 """
+import ctypes
 import pathlib
 import re
 
@@ -299,6 +300,31 @@ def test_flash_tma_inputs_are_copied_to_an_aligned_buffer():
     assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, odd)
     even = torch.zeros((1, 4, 1, 16), dtype=torch.bfloat16)
     assert kfa._aligned(even) is even
+
+
+@pytest.mark.parametrize("path", [kfa.TENSOR_CORES, kfa.CUDA_CORES])
+def test_flash_launch_route_passes_the_kernels_arguments(monkeypatch, path):
+    """The one launch site, shared by the wrapper and chip_smoke.py's
+    comparison of the routes: the route's kernel, the four tensors, then
+    B, S, T, Hq, Hkv, D, the type's code, causal, window, softcap and
+    D ** -0.5 in the order of the kernels' C entry points."""
+    seen = []
+    monkeypatch.setattr(kfa._launch, "launch",
+                        lambda *a: seen.append(a))
+    q = torch.zeros((2, 5, 6, 48), dtype=torch.bfloat16)
+    k = v = torch.zeros((2, 7, 3, 48), dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    kfa._launch_route(path, q, k, v, out, causal=False, window=9,
+                      softcap=5.0)
+    (name, device, tensors, *scalars), = seen
+    assert name == kfa.KERNELS[path] and device == q.device
+    assert [t is x for t, x in zip(tensors, (q, k, v, out))] == [True] * 4
+    assert [s.value for s in scalars[:9]] == [2, 5, 7, 6, 3, 48,
+                                              kfa.DTYPE_CODES[q.dtype], 0, 9]
+    assert [type(s) for s in scalars] == [ctypes.c_int] * 9 + [
+        ctypes.c_float] * 2
+    assert scalars[9].value == 5.0
+    assert scalars[10].value == pytest.approx(48 ** -0.5, rel=1e-7)
 
 
 def test_rglru_kernel_source_writes_the_fma_out():
