@@ -9,8 +9,10 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    of the seven kernels (``flash_attention`` has two routes; one ``nvcc``
    each, started together) and print their registers and spills;
 2. hold the monitor's two kernels against their plain PyTorch versions on
-   the card, at small adversarial shapes and at the main path's slab
-   shapes, and time both;
+   the card, at small adversarial shapes (among them the grid kernel's
+   128-column tile edges and odd M on odd D, so that every other row is
+   off 16-byte alignment) and at the main path's slab shapes, time both,
+   and log the grid kernel's registers, shared memory and residency;
 3. the live monitor's main path: a 100,000-device fleet (half ``a100``,
    half ``h100_instant``) polled every 1 ms in 0.5 s ticks for 10 s
    through ``replay(grid=True)`` (the ``stream_ingest_grid`` kernel), a
@@ -338,6 +340,21 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def ptxas_usage(name):
+    """``{entry function: (registers, the spill line)}`` from ptxas's
+    report in ``build/kernels/<name>.log`` (``-Xptxas -v``)."""
+    from repro_torch.kernels import _build
+    usage, entry, spill = {}, None, ""
+    for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+        if "Compiling entry function '" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            usage[entry] = (int(line.split("Used")[1].split()[0]), spill)
+    return usage
+
+
 def kernel_bytes(name, args, outs):
     """Bytes the kernel must move: each input it reads once, each output
     written once (the flat kernel does not read ``seg``/``first``)."""
@@ -492,8 +509,11 @@ def run(dev, n_devices, stream_s, flat_s):
                   ("stream_ingest", flat_case(rng, 2000, 40, big_group=5000),
                    trap),
                   ("stream_ingest", flat_case(rng, 129, 1), trap)]
+        # from (1, 127) on: the grid kernel's 128-column tiles at their
+        # edges, and odd M on odd D (every other row off 16-byte alignment)
         for d, m in ((1, 1), (7, 31), (33, 32), (300, 33), (64, 500),
-                     (5, 0)):
+                     (5, 0), (1, 127), (9, 128), (9, 129), (1, 255),
+                     (9, 256), (9, 257), (257, 511), (9, 2049), (257, 255)):
             cases.append(("stream_ingest_grid", grid_case(rng, d, m), trap))
     small_err = {k: 0.0 for k in kernels}
     for name, args, trap in cases:
@@ -556,6 +576,22 @@ def run(dev, n_devices, stream_s, flat_s):
         log(f"{name} at {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {max(bytes_ms, ops_ms):.3f} ms, max_abs_err "
             f"{err:.3e}")
+        if name == "stream_ingest_grid":
+            # the instance the main path runs (the template's bool is
+            # trapezoid), its registers and how it fills the card
+            from repro_torch.kernels.stream_ingest_grid import launch_config
+            cfg = launch_config(shape[0], dev, trap)
+            regs, spill = next((u for e, u in ptxas_usage(name).items()
+                                if f"ILb{int(trap)}E" in e), (None, ""))
+            results[name].update(registers=regs, **cfg)
+            warps = cfg["blocks_per_sm"] * cfg["threads"] // 32
+            log(f"{name}: {regs} registers a thread ({spill}), "
+                f"{cfg['smem_bytes']} B of shared memory and "
+                f"{cfg['threads']} threads a block, {cfg['blocks_per_sm']} "
+                f"resident blocks an SM ({warps} warps), grid "
+                f"{cfg['grid_blocks']} blocks over "
+                f"{cfg['sms']} SMs; {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+                f"{max(bytes_ms, ops_ms) / ms:.1%} of the bound")
         del outs, args
     captured.clear()
     torch.cuda.empty_cache()
@@ -1650,12 +1686,13 @@ def rglru_check(a, u):
 def flash_cases(dev):
     """flash_attention inputs on ``dev``: tests/test_kernels.py's shapes
     (GQA, MQA, ragged, non-causal, window, soft-cap, S != T), an odd
-    group and head_dim, a 128-head group, rows with no valid key, and the
+    group and head_dim, a 128-head group, rows with no valid key, the
     main path's shape at small S (300, and 299: the last 128-row block
-    holds 3 positions), each in f32, f16 and bf16; then the main path's
-    own shape.  Returns that list of (label, q, k, v, kwargs), and a
-    second one: a head_dim of 40 in f16 and bf16, the 16-bit inputs that
-    stay on the CUDA cores."""
+    holds 3 positions), and head_dims 128 (GQA), 80 (MQA) and 192 (the
+    kernels' DMAX = 128 and 256 instances below their full width), each
+    in f32, f16 and bf16; then the main path's own shape.  Returns that
+    list of (label, q, k, v, kwargs), and a second one: a head_dim of 40
+    in f16 and bf16, the 16-bit inputs that stay on the CUDA cores."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 31)
 
@@ -1683,7 +1720,10 @@ def flash_cases(dev):
                 case(1, 70, 70, 4, 1, 256, dtype, causal=False, window=20),
                 case(2, 300, 300, 16, 1, 256, dtype, window=64),
                 case(2, 299, 299, 16, 1, 256, dtype, window=64),
-                case(1, 64, 64, 4, 2, 32, dtype, softcap=30.0)]
+                case(1, 64, 64, 4, 2, 32, dtype, softcap=30.0),
+                case(2, 100, 100, 8, 2, 128, dtype, window=33),
+                case(1, 130, 130, 16, 1, 80, dtype, window=64),
+                case(1, 129, 129, 4, 1, 192, dtype)]
     b, s, hq, hkv, d = LM_ATTN_SHAPE
     out.append(case(b, s, s, hq, hkv, d, torch.bfloat16,
                     window=LM_WINDOW))
@@ -1844,17 +1884,22 @@ def lm_kernels(dev):
         f"{scan_bytes:,}), {scan_bound / scan_ms:.1%} of it")
 
     flash, odd_d = flash_cases(dev)
-    errs = {}
+    errs, wide = {}, {}
     kfa.reset_launches()
     for label, q, k, v, kw in flash:
         err, main_rel = flash_check(q, k, v, kw)
         errs[q.dtype] = max(errs.get(q.dtype, 0.0), err)
+        if q.shape[3] in (80, 128, 192):
+            wide[f"{str(q.dtype)[6:]} head_dim {q.shape[3]}"] = err
     tols = ", ".join(f"{str(t)[6:]} {v:g}" for t, v in FLASH_TOL.items())
     log(f"flash_attention vs blocked_attention at {len(flash)} shapes, "
         f"within {tols}; launches by route "
         f"{flash_attention.launches_by_route} (every 16-bit case on the "
         f"tensor cores); largest differences: " + ", ".join(
             f"{str(t)[6:]} {e:.3e}" for t, e in errs.items()))
+    log("flash_attention at head_dim 80, 128 and 192 (the DMAX = 128 and "
+        "256 instances below full width), largest differences: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in wide.items()))
     check(main_rel <= FLASH_MAIN_REL_L2, f"flash_attention at the main "
           f"shape: relative L2 difference {main_rel:.3e} from "
           f"blocked_attention, above {FLASH_MAIN_REL_L2:g}")

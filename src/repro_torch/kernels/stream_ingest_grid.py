@@ -2,11 +2,17 @@
 (``csrc/stream_ingest_grid.cu``).
 
 Replaces the TPU kernel ``_ingest_grid_kernel``
-(``src/repro/core/engine_backend/pallas_backend.py:276,353,390``).  One
-warp per device row walks the row's columns with a warp-shuffle scan and
-reduces the row's moments.  Bound on an H100: memory, about 33 bytes per
-sample (v in; cum_e, cum_ec, run_dur, run_rec out).  The source's header
-says what the design does about it.
+(``src/repro/core/engine_backend/pallas_backend.py:276,353,390``).
+Persistent blocks of 4 warps; a warp owns a device row at a time and walks
+it in 128-column tiles that an asynchronous-copy ring (TMA bulk copies, or
+8-byte ``cp.async`` where a span is not 16-byte aligned) brings into
+shared memory ahead of use.  Each lane folds 4 consecutive columns
+serially, one warp scan a tile joins the lanes, and the per-sample outputs
+leave through shared memory by TMA bulk stores (the warp's own stores
+where a row is not aligned).  Bound on an H100: bytes, 33 a sample (v in;
+cum_e, cum_ec, run_dur, run_rec out).  The source's header says what the
+design does about it.  Every shape goes to the kernel: any D, any M
+(``M = 0`` passes the state through), either alignment of a row.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.engine_backend import torch_backend as _tb
-from repro_torch.kernels import _launch
+from repro_torch.kernels import _build, _launch
 
 F64, I64, BOOL = torch.float64, torch.int64, torch.bool
 
@@ -52,3 +58,24 @@ def stream_ingest_grid(ts, v, prev_t, prev_v, has_prev, run_t, n_changes,
 
 
 stream_ingest_grid.launches = 0
+
+CONFIG_FIELDS = ("blocks_per_sm", "sms", "grid_blocks", "threads",
+                 "smem_bytes")
+
+
+def launch_config(d: int, device, trapezoid: bool = False) -> dict:
+    """How the kernel launches for ``d`` rows on CUDA ``device``: its
+    resident blocks an SM (from the occupancy calculator), the SM count,
+    the grid's blocks, threads a block and dynamic shared memory a block
+    (:data:`CONFIG_FIELDS`)."""
+    fn = _build.load("stream_ingest_grid").stream_ingest_grid_config
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * len(CONFIG_FIELDS))()
+    with torch.cuda.device(device):
+        rc = fn(d, int(bool(trapezoid)), out)
+    if rc != 0:
+        raise RuntimeError(f"stream_ingest_grid: launch configuration "
+                           f"failed (CUDA error {rc})")
+    return dict(zip(CONFIG_FIELDS, out))

@@ -359,3 +359,33 @@ def test_cuda_stream_ingest_grid_kernel_matches_plain(cuda, seed, trapezoid):
     assert_outputs(tb.stream_ingest_grid(*_to_torch(args)),
                    k_grid.stream_ingest_grid(*_to_torch(args, cuda)),
                    f"seed={seed}", atol=_grid_atol(args))
+
+
+#: the grid kernel's tile edges: 128-column tiles of 4 columns a lane,
+#: rows walked by persistent blocks.  An odd M on an odd D puts every other
+#: row 8 bytes off a 16-byte boundary (8-byte cp.async and the warp's own
+#: stores instead of bulk copies); a ts that starts 8 bytes into its
+#: storage does the same to ts.
+GRID_EDGE_SHAPES = ([(d, m, 0) for d in (1, 9, 257)
+                     for m in (1, 127, 128, 129, 255, 256, 257, 511, 2049)]
+                    + [(9, 257, 1), (4, 500, 1), (5, 0, 0)])
+
+
+@pytest.mark.parametrize("d, m, ts_offset", GRID_EDGE_SHAPES)
+@pytest.mark.parametrize("trapezoid", [False, True])
+def test_cuda_stream_ingest_grid_kernel_matches_plain_at_tile_edges(
+        cuda, d, m, ts_offset, trapezoid):
+    rng = np.random.default_rng(1000 * d + m)
+    args = _grid_args(rng, d, m, trapezoid)
+    on_card = _to_torch(args, cuda)
+    if ts_offset:
+        padded = torch.cat([on_card[0].new_zeros(ts_offset), on_card[0]])
+        on_card[0] = padded[ts_offset:]
+        assert on_card[0].data_ptr() % 16 == 8
+    n0 = k_grid.stream_ingest_grid.launches
+    got = k_grid.stream_ingest_grid(*on_card)
+    torch.cuda.synchronize()
+    assert k_grid.stream_ingest_grid.launches == n0 + 1
+    assert_outputs(tb.stream_ingest_grid(*_to_torch(args)), got,
+                   f"d={d} m={m} ts_offset={ts_offset}",
+                   atol=_grid_atol(args))

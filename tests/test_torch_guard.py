@@ -5,7 +5,10 @@
 * entry points run on the card unless the caller asks for the CPU, and
   never fall back to it on their own;
 * the kernels are built for Hopper (``sm_90a``), and each takes its
-  output pointers in the field order of its wrapper's output tuple.
+  output pointers in the field order of its wrapper's output tuple;
+* the grid ingest kernel keeps its pointers ``__restrict__`` and its
+  asynchronous copies, and shares ``scan.cuh``'s per-sample arithmetic
+  and warp scan with the flat kernel.
 """
 import ast
 import pathlib
@@ -127,7 +130,55 @@ def test_kernel_argument_struct_ends_with_the_output_fields(name, struct,
     tuple's field order, and count every pointer in kNumPointers."""
     src = (_build.CSRC / _build.SOURCES[name]).read_text()
     body = re.search(r"struct %s \{(.*?)\};" % struct, src, re.S).group(1)
-    fields = re.findall(r"\*\s*(\w+);", body)
+    fields = re.findall(r"\*\s*(?:__restrict__\s+)?(\w+);", body)
     assert tuple(fields[-len(outputs._fields):]) == outputs._fields
     n = int(re.search(r"kNumPointers = (\d+);", src).group(1))
     assert n == len(fields)
+
+
+def _grid_args_fields():
+    src = (_build.CSRC / _build.SOURCES["stream_ingest_grid"]).read_text()
+    body = re.search(r"struct GridArgs \{(.*?)\};", src, re.S).group(1)
+    return src, [ln.strip() for ln in body.splitlines()
+                 if ln.strip() and not ln.strip().startswith("//")]
+
+
+def test_grid_kernel_pointers_are_restrict():
+    """No output aliases an input (the wrapper allocates every output),
+    and the kernel says so on each of GridArgs's pointers."""
+    _, fields = _grid_args_fields()
+    assert len(fields) == len(tb.IngestGridOut._fields) + 15
+    for field in fields:
+        assert re.fullmatch(r"(const )?\w+\* __restrict__ \w+;", field), field
+
+
+def test_grid_kernel_fills_its_ring_with_asynchronous_copies():
+    """Aligned spans by TMA bulk copy, the rest by 8-byte cp.async, both
+    completing on the stage's mbarrier; aligned tiles leave by TMA bulk
+    store.  ``v`` is never copied to an aligned buffer first."""
+    src, _ = _grid_args_fields()
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx" in src
+    assert "cp.async.ca.shared.global" in src
+    assert "cp.async.mbarrier.arrive.noinc" in src
+    assert "mbarrier.try_wait.parity" in src
+    assert "cp.async.bulk.global.shared::cta.bulk_group" in src
+    wrapper = (_build.CSRC.parent / "stream_ingest_grid.py").read_text()
+    assert "clone(" not in wrapper and ".copy_(" not in wrapper
+
+
+def test_ingest_kernels_share_the_scan_header():
+    """scan.cuh defines sample_math and warp_scan once; the flat kernel
+    takes both from it, the grid kernel its warp_scan (its per-sample
+    arithmetic is sample_math's with compare-select min and max), and
+    neither source defines its own."""
+    header = (_build.CSRC / "scan.cuh").read_text()
+    for fn in ("sample_math", "warp_scan"):
+        assert len(re.findall(r"\b%s\(" % fn, header)) == 1, fn
+    for name, uses in (("stream_ingest", ("sample_math", "warp_scan")),
+                       ("stream_ingest_grid", ("warp_scan",))):
+        src = (_build.CSRC / _build.SOURCES[name]).read_text()
+        assert '#include "scan.cuh"' in src
+        for fn in uses:
+            assert re.search(r"\b%s\(" % fn, src), (name, fn)
+        assert not re.search(
+            r"SampleMath sample_math\(|RunScan warp_scan\(", src), name

@@ -366,15 +366,21 @@ def test_cuda_rglru_scan_matches_plain_bitwise(cuda, b, s, d):
     (70, 70, 16, 1, 256, dict(window=20)),
     (300, 300, 16, 1, 256, dict(window=64)),
     (299, 299, 16, 1, 256, dict(window=64)),
-    (50, 50, 4, 2, 40, dict(window=9))],
+    (50, 50, 4, 2, 40, dict(window=9)),
+    (100, 100, 8, 2, 128, dict(window=33)),
+    (130, 130, 16, 1, 80, dict(window=64)),
+    (129, 129, 4, 1, 192, {})],
     ids=FLASH_IDS + ["odd-group", "wide-group", "head-256", "main-300",
-                     "main-299", "head-40"])
+                     "main-299", "head-40", "head-128", "head-80",
+                     "head-192"])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, s, t, hq, hkv, d,
                                             kw):
     """Every case on the route its type and head_dim give: bf16/f16 on
     the tensor cores where head_dim is a multiple of 16 (all but
     head-40), the rest on the CUDA cores; main-299 leaves the last block
-    3 of its 8 positions."""
+    3 of its 8 positions.  head-128 and head-80 run both kernels' DMAX =
+    128 instances (80 zero-filled past D on the tensor cores), head-192
+    their DMAX = 256 ones."""
     q, k, v = (x.to(cuda, dtype) for x in _t(*_qkv(2, s, t, hq, hkv, d,
                                                     s + d)))
     path = (kfa.TENSOR_CORES if dtype != torch.float32 and d % 16 == 0
