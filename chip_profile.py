@@ -3,7 +3,6 @@
     python3 chip_profile.py            # the live monitor's ingest
     python3 chip_profile.py --audit    # the batched fleet audit
     python3 chip_profile.py --serve    # recurrentgemma-9b prefill, decode
-    python3 chip_profile.py --grid-bound   # what sets the grid kernel's time
 
 The monitor: builds the same 100,000-device fleet as ``chip_smoke.py``,
 warms both monitors up, then traces the ingest of two grid slabs
@@ -19,13 +18,6 @@ The serving path: recurrentgemma-9b at full width and depth in bf16
 (``chip_smoke.py``'s phase 8b), warmed up with a short prefill, then
 traces the prefill of 2 prompts of 3000 tokens and, apart, 4 greedy
 decode steps.
-
-The grid kernel's bound: ``stream_ingest_grid`` at the monitor's
-[100000, 500] slab beside two kernels that move the same bytes and do
-nothing else (read v once; write cum_e, cum_ec, run_dur and run_rec once),
-built here from ``BARE_SRC``: one walks the slab as one flat array, the
-other walks rows the way the grid kernel does (a warp a row, rows strided
-by the warps in the grid), each at 8, 12, 16 and 32 warps an SM.
 
 Prints, per trace, the wall time, the device-busy share (summed kernel
 time over wall time) and the operations with the most device time.
@@ -78,121 +70,6 @@ def traced(label, fn, host_table=False):
                   flush=True)
     os.makedirs(OUT, exist_ok=True)
     prof.export_chrome_trace(os.path.join(OUT, f"trace_{label}.json"))
-
-
-BARE_SRC = r"""
-// The grid kernel's bytes and nothing else: read v once, write cum_e,
-// cum_ec, run_dur (f64) and run_rec (bytes) once per sample.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-__global__ void bare_flat(const double* __restrict__ v,
-                          double* __restrict__ e, double* __restrict__ ec,
-                          double* __restrict__ rd,
-                          unsigned char* __restrict__ rec, int64_t n) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       2 * i + 1 < n; i += step) {
-    const double2 x = reinterpret_cast<const double2*>(v)[i];
-    reinterpret_cast<double2*>(e)[i] = make_double2(x.x + 1.0, x.y + 1.0);
-    reinterpret_cast<double2*>(ec)[i] = make_double2(x.x + 2.0, x.y + 2.0);
-    reinterpret_cast<double2*>(rd)[i] = make_double2(x.x * 2.0, x.y * 2.0);
-    reinterpret_cast<uchar2*>(rec)[i] = make_uchar2(x.x > 100.0, x.y > 100.0);
-  }
-}
-
-// a warp a row, rows strided by the warps in the grid
-__global__ void bare_rows(const double* __restrict__ v,
-                          double* __restrict__ e, double* __restrict__ ec,
-                          double* __restrict__ rd,
-                          unsigned char* __restrict__ rec, int64_t d,
-                          int64_t m) {
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * 4;
-  for (int64_t row = (int64_t)blockIdx.x * 4 + (threadIdx.x >> 5); row < d;
-       row += stride) {
-    const int64_t o = row * m;
-#pragma unroll 4
-    for (int64_t c = lane; c < m; c += 32) {
-      const double x = v[o + c];
-      e[o + c] = x + 1.0;
-      ec[o + c] = x + 2.0;
-      rd[o + c] = x * 2.0;
-      rec[o + c] = x > 100.0;
-    }
-  }
-}
-
-// rows: 0 flat, 1 row order; blocks of 128 threads (4 warps)
-extern "C" int bare_launch(int rows, int blocks, const double* v, double* e,
-                           double* ec, double* rd, unsigned char* rec,
-                           int64_t d, int64_t m, void* stream) {
-  if (rows) {
-    bare_rows<<<blocks, 128, 0, (cudaStream_t)stream>>>(v, e, ec, rd, rec,
-                                                        d, m);
-  } else {
-    bare_flat<<<blocks, 128, 0, (cudaStream_t)stream>>>(v, e, ec, rd, rec,
-                                                        d * m);
-  }
-  return (int)cudaGetLastError();
-}
-"""
-
-
-def grid_bound(dev) -> None:
-    """The grid kernel at [N_DEVICES, 500] beside BARE_SRC's two kernels
-    on the same inputs and outputs, each at 8-32 warps an SM."""
-    import ctypes
-    import hashlib
-    import subprocess
-
-    import numpy as np
-
-    from repro_torch.engine_backend import torch_backend as tb
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.stream_ingest_grid import (launch_config,
-                                                        stream_ingest_grid)
-    src = _build.BUILD_DIR / "bare_grid.cu"
-    lib = _build.BUILD_DIR / (
-        "libbare_grid-" + hashlib.sha256(BARE_SRC.encode()).hexdigest()[:16]
-        + ".so")
-    if not lib.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src.write_text(BARE_SRC)
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                        str(lib), str(src)], check=True)
-    bare = ctypes.CDLL(str(lib)).bare_launch
-    bare.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                     + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
-    bare.restype = ctypes.c_int
-    args = cs.to_card(cs.grid_case(np.random.default_rng(cs.SEED),
-                                   cs.N_DEVICES, 500), dev)
-    d, m = args[1].shape
-    out = tb.IngestGridOut.empty(d, (d, m), dev)
-    nbytes = cs.kernel_bytes("stream_ingest_grid", args, out)
-    bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
-    cfg = launch_config(d, dev)
-
-    def line(label, ms):
-        print(f"{label}: {ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, "
-              f"{bound / ms:.1%} of the {bound:.4f} ms bound", flush=True)
-
-    line(f"stream_ingest_grid [{d}, {m}], "
-         f"{cfg['blocks_per_sm'] * cfg['threads'] // 32} warps an SM",
-         cs.time_ms(lambda: stream_ingest_grid(*args, False), 20))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [args[1].data_ptr(), out.cum_e.data_ptr(), out.cum_ec.data_ptr(),
-            out.run_dur.data_ptr(), out.run_rec.data_ptr()]
-    for rows, order in ((0, "flat"), (1, "row order")):
-        for warps in (8, 12, 16, 32):
-            blocks = cfg["sms"] * warps // 4
-
-            def run():
-                rc = bare(rows, blocks, *ptrs, d, m, stream)
-                if rc != 0:
-                    raise RuntimeError(f"bare_launch: CUDA error {rc}")
-            line(f"same bytes, {order}, {warps} warps an SM",
-                 cs.time_ms(run, 20))
 
 
 def audit(dev) -> None:
@@ -250,9 +127,6 @@ def main() -> int:
                     help="trace the fleet audit instead of the monitor")
     ap.add_argument("--serve", action="store_true",
                     help="trace recurrentgemma-9b's prefill and decode")
-    ap.add_argument("--grid-bound", action="store_true",
-                    help="time the grid kernel beside kernels that only "
-                         "move its bytes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -265,9 +139,6 @@ def main() -> int:
         return 0
     if args.serve:
         serve(dev)
-        return 0
-    if args.grid_bound:
-        grid_bound(dev)
         return 0
     names, _, shifts, bank = cs.fleet(dev, cs.N_DEVICES)
 

@@ -340,21 +340,6 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def ptxas_usage(name):
-    """``{entry function: (registers, the spill line)}`` from ptxas's
-    report in ``build/kernels/<name>.log`` (``-Xptxas -v``)."""
-    from repro_torch.kernels import _build
-    usage, entry, spill = {}, None, ""
-    for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-        if "Compiling entry function '" in line:
-            entry = line.split("'")[1]
-        elif "spill" in line:
-            spill = line.strip()
-        elif "Used" in line and "registers" in line and entry:
-            usage[entry] = (int(line.split("Used")[1].split()[0]), spill)
-    return usage
-
-
 def kernel_bytes(name, args, outs):
     """Bytes the kernel must move: each input it reads once, each output
     written once (the flat kernel does not read ``seg``/``first``)."""
@@ -581,11 +566,10 @@ def run(dev, n_devices, stream_s, flat_s):
             # trapezoid), its registers and how it fills the card
             from repro_torch.kernels.stream_ingest_grid import launch_config
             cfg = launch_config(shape[0], dev, trap)
-            regs, spill = next((u for e, u in ptxas_usage(name).items()
-                                if f"ILb{int(trap)}E" in e), (None, ""))
-            results[name].update(registers=regs, **cfg)
+            results[name].update(**cfg)
             warps = cfg["blocks_per_sm"] * cfg["threads"] // 32
-            log(f"{name}: {regs} registers a thread ({spill}), "
+            log(f"{name}: {cfg['registers']} registers and "
+                f"{cfg['local_bytes']} B of local memory a thread, "
                 f"{cfg['smem_bytes']} B of shared memory and "
                 f"{cfg['threads']} threads a block, {cfg['blocks_per_sm']} "
                 f"resident blocks an SM ({warps} warps), grid "

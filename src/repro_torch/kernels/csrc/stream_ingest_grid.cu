@@ -54,14 +54,13 @@
 //   warp's 8-byte stores; run_rec in the widest words its address allows.
 //   Every pointer is `__restrict__`.
 //
-// Chosen on the card (PERF.md): 8 columns a lane needed more registers,
-// so fewer warps an SM, and ran slower than 4; f64 fmin/fmax spend
-// several instructions each on their NaN rules, hence grid_sample below.
-// ptxas gives this design 143 registers (the launch bounds ask for 3
-// blocks an SM) and shared memory allows 6: 12 warps an SM.  What bounds
-// it now (`chip_profile.py --grid-bound`): kernels that only move the
-// same bytes run faster as one flat stream than in this row order, and
-// faster with more warps an SM than this kernel's registers allow.
+// The per-sample arithmetic is scan.cuh's sample_math, as in the flat
+// kernel.  ptxas gives this design 154 registers (the launch bounds ask
+// for 3 blocks an SM, at most 168) and no spills; shared memory allows 6
+// blocks, so 12 warps an SM.  Kernels that only move the same bytes ran
+// faster as one flat stream than in this row order, and faster with more
+// warps an SM than these registers allow (PERF.md): the row order and the
+// residency set its time now.
 //
 // No atomics: every output has exactly one writer, so results are the same
 // from run to run.  Row sums differ from the plain version only by
@@ -368,44 +367,6 @@ __device__ __forceinline__ double param_f64(uint64_t held, int k) {
   return __longlong_as_double((long long)__shfl_sync(kFull, held, k));
 }
 
-// min and max as compare and select (f64 fmin and fmax spend several
-// instructions each on sm_90a for their NaN rules)
-__device__ __forceinline__ double min_f64(double a, double b) {
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ double max_f64(double a, double b) {
-  return a > b ? a : b;
-}
-
-// scan.cuh's sample_math, operation for operation, with min_f64/max_f64
-// for its five fmin/fmax.  The grid path's slabs are finite (the caller
-// checks) and the clipped values only feed sums, so every output held
-// bitwise (vc, change, out) is computed as sample_math computes it.
-__device__ __forceinline__ SampleMath grid_sample(
-    double t, double v, double pt, double pv, bool has, double gain,
-    double offset, double tshift, double win_a, double win_b,
-    double max_hold, double env_lo, double env_hi, bool trapezoid) {
-  SampleMath s;
-  s.vc = (v - offset) / gain;
-  const double pvc = (pv - offset) / gain;
-  const double dt = t - pt;
-  const double hold = min_f64(dt, max_hold);
-  const double dens_r = trapezoid ? 0.5 * (pv + v) : pv;
-  const double dens_c = trapezoid ? 0.5 * (pvc + s.vc) : pvc;
-  s.inc = has ? dens_r * hold : 0.0;
-  s.inc_c = has ? dens_c * hold : 0.0;
-  const double w_r = dens_r * max_f64(min_f64(pt + hold, win_b) - pt, 0.0);
-  s.w_inc = (has && pt >= win_a) ? w_r : 0.0;
-  const double pts = pt - tshift;
-  const double w_c =
-      dens_c * max_f64(min_f64(pts + hold, win_b) - pts, 0.0);
-  s.w_inc_c = (has && pts >= win_a) ? w_c : 0.0;
-  s.change = has && (v != pv);
-  s.out = (s.vc < env_lo) || (s.vc > env_hi);
-  return s;
-}
-
 template <bool kTrap>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stream_ingest_grid_kernel(const GridArgs a, int64_t d, int64_t m) {
@@ -500,7 +461,7 @@ stream_ingest_grid_kernel(const GridArgs a, int64_t d, int64_t m) {
 #pragma unroll
       for (int j = 0; j < kRun; ++j) {
         const bool valid = j < nv;
-        const SampleMath s = grid_sample(
+        const SampleMath s = sample_math(
             tt[j], vv[j], j ? tt[j - 1] : (lane ? up_t : c_t),
             j ? vv[j - 1] : (lane ? up_v : c_v),
             valid && (j || lane || c_has), gain, offset, tshift, win_a,
@@ -638,10 +599,13 @@ stream_ingest_grid_kernel(const GridArgs a, int64_t d, int64_t m) {
 struct LaunchConfig {
   int blocks_per_sm;  // resident blocks an SM, from the occupancy calculator
   int sms;
+  int registers;      // a thread, of the loaded kernel
+  int local_bytes;    // local memory a thread (spills), of the loaded kernel
 };
 
-// the kernel's resident blocks per SM and the SM count of the current
-// device, computed once a device (the shared memory attribute set then)
+// the kernel's resident blocks per SM, registers and local memory, and the
+// SM count of the current device, computed once a device (the shared
+// memory attribute set then)
 template <bool kTrap>
 int launch_config(LaunchConfig* out) {
   static LaunchConfig cached[kMaxDevices] = {};
@@ -659,12 +623,18 @@ int launch_config(LaunchConfig* out) {
           &c.blocks_per_sm, stream_ingest_grid_kernel<kTrap>, kThreads,
           kSmemBytes);
     }
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) {
+      err = cudaFuncGetAttributes(&attr, stream_ingest_grid_kernel<kTrap>);
+    }
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount,
                                    dev);
     }
     if (err != cudaSuccess) return (int)err;
     if (c.blocks_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    c.registers = attr.numRegs;
+    c.local_bytes = (int)attr.localSizeBytes;
     cached[dev] = c;
   }
   *out = cached[dev];
@@ -717,7 +687,8 @@ extern "C" int stream_ingest_grid_launch(void* const* ptrs, int64_t d,
 }
 
 // out: resident blocks an SM, SMs, the grid's blocks for d rows, threads
-// a block, dynamic shared memory bytes a block.  Returns the CUDA error.
+// a block, dynamic shared memory bytes a block, registers a thread, local
+// memory bytes a thread.  Returns the CUDA error.
 extern "C" int stream_ingest_grid_config(int64_t d, int trapezoid,
                                          int64_t* out) {
   repro_torch::LaunchConfig c;
@@ -728,6 +699,8 @@ extern "C" int stream_ingest_grid_config(int64_t d, int trapezoid,
   out[2] = repro_torch::grid_blocks(c, d);
   out[3] = repro_torch::kThreads;
   out[4] = repro_torch::kSmemBytes;
+  out[5] = c.registers;
+  out[6] = c.local_bytes;
   return 0;
 }
 

@@ -60,13 +60,14 @@ def stream_ingest_grid(ts, v, prev_t, prev_v, has_prev, run_t, n_changes,
 stream_ingest_grid.launches = 0
 
 CONFIG_FIELDS = ("blocks_per_sm", "sms", "grid_blocks", "threads",
-                 "smem_bytes")
+                 "smem_bytes", "registers", "local_bytes")
 
 
 def launch_config(d: int, device, trapezoid: bool = False) -> dict:
     """How the kernel launches for ``d`` rows on CUDA ``device``: its
     resident blocks an SM (from the occupancy calculator), the SM count,
-    the grid's blocks, threads a block and dynamic shared memory a block
+    the grid's blocks, threads a block, dynamic shared memory a block, and
+    the loaded kernel's registers and local memory (spills) a thread
     (:data:`CONFIG_FIELDS`)."""
     fn = _build.load("stream_ingest_grid").stream_ingest_grid_config
     fn.argtypes = [ctypes.c_int64, ctypes.c_int,
