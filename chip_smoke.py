@@ -25,15 +25,24 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    plain path the CPU tests hold against the JAX package), which must
    agree;
 5. the batched fleet audit's main path: ``log_filter`` against its plain
-   version at small adversarial shapes; a 96-device audit on the card
-   and on the CPU, which must agree; then ``fleet_audit`` over 100,000
-   devices of every transient kind (Fig. 14) with the naive and §5
-   protocols, its per-profile errors, its streamed moments against the
-   exact ones, and ``log_filter`` held against its plain version and
-   timed at the largest shape the audit gave it;
+   version at small adversarial shapes and at each route's edges (G not
+   a multiple of the tile's rows, G = 1, zero-width padding, S where a
+   tile drops to one row and past it on the two-launch route, ticks far
+   before, on and past the edges), each on the route ``plan`` gives; a
+   96-device audit on the card and on the CPU, which must agree; then
+   ``fleet_audit`` over 100,000 devices of every transient kind (Fig.
+   14) with the naive and §5 protocols, every ``log_filter`` launch on
+   the shared-memory route (launches by route and tile rows logged), its
+   per-profile errors, its streamed moments against the exact ones, and
+   ``log_filter`` held against its plain version and timed at the
+   largest shape the audit gave it, its bound from the f64 instructions
+   of the built kernel's SASS;
 6. the scalar §5 path: ``step_integrate`` against its plain version at
-   adversarial rows, at a real §5 trial's [1, M] and at [4096, 8192],
-   timed at the last two; ``benchmarks/energy_cases.py``'s Figs. 15-17
+   adversarial rows (a trial's M = 7440 with windows at both ends, empty
+   and reversed, times repeated across the kernel's pivots, M = 1, M
+   around each block size), at a real §5 trial's [1, M] and at [4096,
+   8192], timed at the last two beside an empty launch of the same grid
+   (``launch_floor_ms``); ``benchmarks/energy_cases.py``'s Figs. 15-17
    grid (3 sensor classes × 3 loads × 4 seeds, naive and §5) through
    ``measure_naive`` and ``measure_good_practice`` on the card (the main
    path, whose ``step_integrate`` launches are counted) and on the CPU,
@@ -110,11 +119,13 @@ FP64_OPS_PER_S = 34e12
 #: float64 operations per sample (sample_math in csrc/scan.cuh, the
 #: scans and the row reductions; a division counts as one)
 OPS_PER_SAMPLE = {"stream_ingest": 35, "stream_ingest_grid": 35}
-#: log_filter's float64 operations, an exp counted as one: per tick the
-#: decay (sub, neg, div, exp, sub, mul, add) and one compare per step of
-#: the binary search; per (row, segment) the filter step (the same seven)
-LOG_FILTER_OPS_PER_TICK = 7
-LOG_FILTER_OPS_PER_STEP = 7
+#: f64 instructions a second: the FP64 rate above counts an FMA as two
+#: operations, and the pipe issues one f64 instruction a lane a clock
+FP64_INSTR_PER_S = FP64_OPS_PER_S / 2
+#: what counts as an f64 instruction in SASS: the FP64 pipe's opcodes,
+#: the MUFU's 64-bit reciprocal and rsqrt seeds, conversions from or to f64
+F64_OPCODE = ("DADD", "DMUL", "DFMA", "DSETP", "DSET", "DMNMX",
+              "MUFU.RCP64H", "MUFU.RSQ64H")
 #: the audit: 99,000 devices in six equal shares (every transient kind of
 #: Fig. 14) and 1,000 module-scope GH200 sensors, in 25,000-device slabs
 AUDIT_KINDS = ("a100", "h100_instant", "v100", "kepler", "maxwell", "fermi2")
@@ -768,7 +779,88 @@ def log_filter_cases(dev):
         tau = rng.uniform(0.01, 1.5, g)
         cases.append((bank.arrays, torch.as_tensor(ticks, device=dev),
                       torch.as_tensor(tau, device=dev)))
-    return cases
+    return cases + [log_filter_long_case(dev, *shape, seed=SEED + i)
+                    for i, shape in enumerate(log_filter_route_shapes())]
+
+
+def log_filter_route_shapes():
+    """(R, G, S, M) at the kernel's tile and route edges: G not a multiple
+    of the tile's rows, G = 1, per-device rows with zero-width padding, S
+    one below and at the size where a tile drops to one row, the largest S
+    on the shared-memory route and one past it (two launches), per-device
+    rows at the drop and past the largest."""
+    from repro_torch.kernels import log_filter as k_log
+
+    def edges(r):
+        drop = next(s for s in range(1, 20000)
+                    if k_log.plan(r, 64, s, 64)[1] == 1)
+        last = max(s for s in range(drop, 20000)
+                   if k_log.plan(r, 64, s, 64)[0] == k_log.SHARED_MEMORY)
+        return drop, last
+    drop, last = edges(1)
+    drop_g, last_g = edges(3)
+    return [(1, 1003, 64, 131), (1, 1, 64, 7440), (300, 300, 64, 97),
+            (1, 40, drop - 1, 50), (1, 40, drop, 50), (1, 20, last, 60),
+            (1, 20, last + 1, 60), (3, 3, drop_g, 40), (3, 3, last_g + 1, 40)]
+
+
+def log_filter_long_case(dev, r, g, s, m, seed):
+    """``r`` timeline rows of up to ``s`` segments (row 0 full, the others
+    of random lengths, padded by repeating their last edge) and [g, m]
+    ticks on ``dev``: far before the first edge, far past the last, on
+    every edge of row 0, random in between."""
+    from repro_torch.engine_backend.pytrees import TimelineArrays
+    rng = np.random.default_rng(seed)
+    edges = np.empty((r, s + 1))
+    powers = np.empty((r, s))
+    n_segs = np.full(r, s)
+    for i in range(r):
+        k = s if i == 0 else int(rng.integers(1, s + 1))
+        edges[i, :k + 1] = 0.1 + np.concatenate(
+            [[0.0], np.cumsum(rng.uniform(1e-3, 5e-3, k))])
+        edges[i, k + 1:] = edges[i, k]
+        powers[i, :k] = rng.uniform(60.0, 300.0, k)
+        powers[i, k:] = 55.0
+        n_segs[i] = k
+    ticks = rng.uniform(-1.0, edges.max() + 1.0, (g, m))
+    ticks[:, 0] = -1e6
+    ticks[:, 1] = 1e6
+    ticks[:, 2] = edges[0, 0]
+    ticks[:, 3] = edges[0, -1]
+    on_edges = edges[0][:m - 4]
+    ticks[0, 4:4 + len(on_edges)] = on_edges
+    tl = TimelineArrays(*to_card([edges, powers, np.full(r, 55.0), n_segs],
+                                 dev))
+    return (tl, torch.as_tensor(ticks, device=dev),
+            torch.as_tensor(rng.uniform(0.01, 1.5, g), device=dev))
+
+
+def sass_f64_count(name, function):
+    """f64 instructions (``F64_OPCODE``, and conversions from or to f64)
+    of ``function`` in kernel ``name``'s built library, by ``cuobjdump
+    -sass``, on its path to the first unpredicated EXIT: the slow paths
+    the compiler places after it (the division's) are not counted."""
+    import re
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    body = re.split(r"Function : ", sass)
+    text = next((b for b in body if b.startswith(function)), None)
+    check(text is not None, f"{name}: no {function} in the SASS")
+    count = 0
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", text):
+        ins = m.group(1).strip()
+        if ins == "EXIT" or ins.startswith("EXIT "):
+            break
+        op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+        if (op.startswith(F64_OPCODE) or (op[:3] in ("F2F", "I2F", "F2I")
+                                          and ".F64" in op)):
+            count += 1
+    check(count > 0, f"{name}: no f64 instruction in {function}")
+    return count
 
 
 def log_filter_err(tl, ticks, tau):
@@ -803,11 +895,25 @@ def audit(dev):
     from repro_torch.core import fleet_engine as fe
     from repro_torch.engine_backend import torch_backend as tb
     from repro_torch.kernels import _build
+    from repro_torch.kernels import log_filter as k_log
     from repro_torch.kernels.log_filter import log_filter
 
-    # -- 5a. small adversarial shapes ------------------------------------------
-    small_err = max(log_filter_err(*c) for c in log_filter_cases(dev))
-    log(f"log_filter vs plain, 4 small adversarial cases: max_abs_err="
+    # -- 5a. small adversarial shapes, and each route's edges -----------------
+    small_err = 0.0
+    cases = log_filter_cases(dev)
+    for tl, ticks, tau in cases:
+        (r, s1), (g, m) = tl.edges.shape, ticks.shape
+        route, rows = k_log.plan(r, g, s1 - 1, m)
+        before = dict(log_filter.launches_by_route)
+        err = log_filter_err(tl, ticks, tau)
+        before[route] += 1
+        check(log_filter.launches_by_route == before,
+              f"log_filter at {[r, g, s1 - 1, m]} took another route than "
+              f"{route}")
+        small_err = max(small_err, err)
+        log(f"  log_filter R={r} G={g} S={s1 - 1} M={m}: {route}, rows "
+            f"{rows}, max_abs_err={err:.3e}")
+    log(f"log_filter vs plain, {len(cases)} adversarial cases: max_abs_err="
         f"{small_err:.3e}")
 
     # -- 5b. a small audit on the card against the CPU plain path --------------
@@ -830,14 +936,19 @@ def audit(dev):
     names = audit_fleet()
     captured = {}
 
+    tiles = {}
+
     def recording(tl, ticks, tau):
         if ticks.numel() > captured.get("size", 0):
             captured.update(size=ticks.numel(), args=(tl, ticks, tau))
+        plan = k_log.plan(tl.edges.shape[0], ticks.shape[0],
+                          tl.edges.shape[1] - 1, ticks.shape[1])
+        tiles[plan] = tiles.get(plan, 0) + 1
         return log_filter(tl, ticks, tau)
 
     fe.log_filter = recording
     try:
-        log_filter.launches = 0
+        k_log.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fe.fleet_audit(AUDIT_DEVICES, names, seed=SEED,
@@ -846,13 +957,17 @@ def audit(dev):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = log_filter.launches
+        by_route = dict(log_filter.launches_by_route)
     finally:
         fe.log_filter = log_filter
     check(launches > 0, "the audit ran no log_filter kernel")
+    check(by_route[k_log.SHARED_MEMORY] == launches,
+          f"the audit's log_filter launches by route: {by_route}")
     log(f"fleet_audit: {AUDIT_DEVICES} devices, naive + §5 "
         f"({AUDIT_TRIALS} trials), {AUDIT_CHUNK}-device slabs, in "
         f"{secs:.6f} s ({AUDIT_DEVICES / secs:.1f} devices/s), "
-        f"{launches} log_filter launches")
+        f"{launches} log_filter launches; by route {by_route}; (route, "
+        f"rows a tile): launches {tiles}")
 
     # -- 5d. what came out ------------------------------------------------------
     for e in (res.naive_j, res.gp_j, res.naive_err, res.gp_err):
@@ -883,15 +998,26 @@ def audit(dev):
     plain_ms = time_ms(lambda: tb.log_filter(tl, ticks, tau), 3)
     g, m = ticks.shape
     r, s1 = tl.edges.shape
-    n_seg = s1 + 1
-    nbytes = 8 * (2 * g * m + g + r * (2 * s1) + 2)
-    ops = (g * m * (LOG_FILTER_OPS_PER_TICK + math.ceil(math.log2(n_seg + 1)))
-           + g * n_seg * LOG_FILTER_OPS_PER_STEP)
+    s = s1 - 1
+    plan = k_log.plan(r, g, s, m)
+    # bytes: ticks in, readings out, tau, the timeline rows
+    nbytes = 8 * (2 * g * m + g + r * (2 * s + 2))
+    # f64 instructions of the built kernel (cuobjdump -sass of its probes
+    # log_filter_tick_ops / log_filter_step_ops, the same inline functions
+    # the kernel runs): per tick a reading and one compare per step of the
+    # search over the S + 1 edges; per (row, segment) a decay and a step
+    tick_ops = sass_f64_count("log_filter", "log_filter_tick_ops")
+    step_ops = sass_f64_count("log_filter", "log_filter_step_ops")
+    search = s1.bit_length()
+    ops = g * m * (tick_ops + search) + g * s * step_ops
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP64_OPS_PER_S * 1e3
-    log(f"log_filter at [{g}, {m}] ({r} timeline row(s), {s1 - 1} "
-        f"segments): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{max(bytes_ms, ops_ms):.4f} ms, max_abs_err {err:.3e}")
+    ops_ms = ops / FP64_INSTR_PER_S * 1e3
+    log(f"log_filter at [{g}, {m}] ({r} timeline row(s), {s} segments; "
+        f"{plan[0]}, rows {plan[1]}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+        f"{bytes_ms:.4f}: {nbytes}; f64 issue {ops_ms:.4f}: {tick_ops} + "
+        f"{search} instructions a tick, {step_ops} a segment by the SASS), "
+        f"max_abs_err {err:.3e}")
     return dict(
         name="log_filter", route="cuda",
         source=f"src/repro_torch/kernels/csrc/{_build.SOURCES['log_filter']}",
@@ -899,8 +1025,11 @@ def audit(dev):
         max_abs_err=max(err, small_err), ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None, shape=[g, m, r, s1 - 1], bytes=nbytes,
-        audit_s=secs, audit_devices_per_s=AUDIT_DEVICES / secs)
+        library_ms=None, shape=[g, m, r, s], bytes=nbytes,
+        f64_instructions=ops, f64_per_tick=tick_ops + search,
+        f64_per_segment=step_ops, launches_by_route=by_route,
+        tile_rows=plan[1], audit_s=secs,
+        audit_devices_per_s=AUDIT_DEVICES / secs)
 
 
 # ---------------------------------------------------------------------------
@@ -930,7 +1059,32 @@ def step_cases(dev):
               np.array([[100.0], [7.0], [100.0], [100.0]]),
               np.array([0.0, 0.0, 0.6, 0.5]), np.array([1.0, 1.0, 0.9, 0.5])),
              (np.zeros((3, 0)), np.zeros((3, 0)), np.zeros(3), np.ones(3))]
-    return [to_card(c, dev) for c in cases]
+    # one row at a §5 trial's M = 7440: windows from before the first
+    # sample (j0 = 0), to past the last (j1 = M - 1), between two samples
+    # (empty) and t0 > t1; then times repeated across the kernel's pivots
+    # (every 30th sample at 256 threads), windows starting and ending on
+    # them
+    m = 7440
+    trial = np.cumsum(rng.uniform(0.5e-3, 1.5e-3, m))
+    vals = rng.uniform(60.0, 250.0, m)
+    cases.append((np.tile(trial, (4, 1)), np.tile(vals, (4, 1)),
+                  np.array([trial[0] - 1.0, trial[100], trial[3000] + 1e-5,
+                            trial[5000]]),
+                  np.array([trial[4000], trial[-1] + 1.0,
+                            trial[3000] + 2e-5, trial[4000]])))
+    rep = trial.copy()
+    for p in (30, 60, 3000, 7410):
+        rep[p - 2:p + 3] = rep[p]
+    rep = np.maximum.accumulate(rep)
+    cases.append((np.tile(rep, (5, 1)), np.tile(vals, (5, 1)),
+                  rep[[30, 60, 3000, 30, 7410]],
+                  np.append(rep[[30, 3000, 7410, 60]], rep[7410] + 1e-6)))
+    cases = [to_card(c, dev) for c in cases]
+    # M just below, at and above a multiple of the kernel's block (256
+    # threads up to M = 8192, then 512, then 1024)
+    for m in (255, 256, 257, 8191, 8192, 8193, 16383, 16384, 16385):
+        cases.append(step_wide_case(dev, 6, m))
+    return cases
 
 
 def step_wide_case(dev, n, m):
@@ -1062,13 +1216,17 @@ def scalar_path(dev):
     from repro_torch.core.sensor import OnboardSensor
     from repro_torch.engine_backend import torch_backend as tb
     from repro_torch.kernels import _build
+    from repro_torch.kernels import log_filter as k_log
+    from repro_torch.kernels import step_integrate as k_step
     from repro_torch.kernels.log_filter import log_filter
     from repro_torch.kernels.step_integrate import step_integrate
 
     # -- 6a. the kernel against its plain version -----------------------------
-    small_err = max(step_err(c, trap) for c in step_cases(dev)
+    cases = step_cases(dev)
+    small_err = max(step_err(c, trap) for c in cases
                     for trap in (False, True))
-    log(f"step_integrate vs plain, 3 small adversarial cases x 2 rules: "
+    log(f"step_integrate vs plain, {len(cases)} adversarial cases (M "
+        f"{sorted({int(c[0].shape[1]) for c in cases})}) x 2 rules: "
         f"max_abs_err={small_err:.3e}")
     calib_a100 = CalibrationRecord("d0", "a100", 0.100, 0.025, "instant",
                                    0.25, sampled_fraction=0.25)
@@ -1131,7 +1289,7 @@ def scalar_path(dev):
     fe.log_filter = recording_lf
     try:
         step_integrate.launches = 0
-        log_filter.launches = 0
+        k_log.reset_launches()
         card = batch_vs_scalar(dev)
         torch.cuda.synchronize()
         step_6c, lf_6c = step_integrate.launches, log_filter.launches
@@ -1196,16 +1354,19 @@ def scalar_path(dev):
                 need, n * m * 16 + n * 24)
 
     ms = time_ms(lambda: step_integrate(*trial), 200)
+    floor_ms = time_ms(lambda: k_step.empty_launch(trial[0]), 200)
     plain_ms = time_ms(lambda: tb.step_integrate(*trial), 50)
     ms_wide = time_ms(lambda: step_integrate(*wide), 20)
+    floor_wide = time_ms(lambda: k_step.empty_launch(wide[0]), 20)
     plain_wide = time_ms(lambda: tb.step_integrate(*wide), 5)
     (b_ms, by, need, full), (b_wide, _, need_w, full_w) = (bound(trial),
                                                            bound(wide))
-    log(f"step_integrate at {list(trial[0].shape)}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({need} of {full} "
-        f"bytes); at {list(STEP_WIDE)}: kernel {ms_wide:.4f} ms, plain "
-        f"{plain_wide:.3f} ms, bound {b_wide:.4f} ms ({need_w} of {full_w} "
-        f"bytes)")
+    log(f"step_integrate at {list(trial[0].shape)}: kernel {ms:.5f} ms, "
+        f"an empty launch of its grid {floor_ms:.5f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.7f} ms ({need} of {full} bytes); "
+        f"at {list(STEP_WIDE)}: kernel {ms_wide:.4f} ms, empty launch "
+        f"{floor_wide:.5f} ms, plain {plain_wide:.3f} ms, bound "
+        f"{b_wide:.4f} ms ({need_w} of {full_w} bytes)")
     return dict(
         name="step_integrate", route="cuda",
         source=f"src/repro_torch/kernels/csrc/"
@@ -1214,6 +1375,7 @@ def scalar_path(dev):
         max_abs_err=max(err, small_err), ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=by, library_ms=None,
         shape=list(trial[0].shape), bytes=need, bytes_rows=full,
+        launch_floor_ms=floor_ms, launch_floor_ms_wide=floor_wide,
         ms_wide=ms_wide, plain_ms_wide=plain_wide, bound_ms_wide=b_wide,
         bytes_wide=need_w, bytes_rows_wide=full_w,
         shape_wide=list(STEP_WIDE), grid_s=secs, launches_6c=step_6c), dict(
@@ -1447,6 +1609,7 @@ def paper_load(dev):
     from repro_torch.core.sensor import OnboardSensor
     from repro_torch.engine_backend import torch_backend as tb
     from repro_torch.kernels import _build
+    from repro_torch.kernels import log_filter as k_log
     from repro_torch.kernels.fma_chain import fma_chain
     from repro_torch.kernels.log_filter import log_filter
     from repro_torch.kernels.step_integrate import step_integrate
@@ -1521,7 +1684,7 @@ def paper_load(dev):
             f"{f}: {w:.2f} W" for f, w in zip(FMA_FRACTIONS, watts)))
 
     # -- 7d. characterise on the card and on the CPU --------------------------
-    log_filter.launches = 0
+    k_log.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card = characterisation(dev)

@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -32,14 +32,18 @@ def check(name: str, device: torch.device,
     return out
 
 
-def launch(name: str, device: torch.device, tensors: Sequence[torch.Tensor],
-           *scalars) -> None:
-    """Call ``<name>_launch(ptrs, *scalars, stream)`` from the kernel's
-    library on the current stream of ``device``; raises on a non-zero
-    ``cudaGetLastError()``.  ``scalars`` are ctypes values."""
+def launch(name: str, device: torch.device,
+           tensors: Sequence[Optional[torch.Tensor]], *scalars,
+           entry: Optional[str] = None) -> None:
+    """Call ``<name>_launch(ptrs, *scalars, stream)`` (or the library's
+    function ``entry``, with the same arguments) from the kernel's library
+    on the current stream of ``device``; raises on a non-zero
+    ``cudaGetLastError()``.  ``scalars`` are ctypes values; a ``None``
+    among ``tensors`` passes a null pointer."""
     lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if name not in _configured:
+    symbol = entry or f"{name}_launch"
+    fn = getattr(lib, symbol)
+    if symbol not in _configured:
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
                        + [type(s) for s in scalars] + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -49,8 +53,9 @@ def launch(name: str, device: torch.device, tensors: Sequence[torch.Tensor],
         if want != len(tensors):
             raise RuntimeError(f"{name}: library takes {want} pointers, "
                                f"wrapper passes {len(tensors)}")
-        _configured.add(name)
-    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+        _configured.add(symbol)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if x is None else x.data_ptr() for x in tensors])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(ptrs, *scalars, ctypes.c_void_p(stream))

@@ -79,9 +79,46 @@ def _empty_columns():
     return np.zeros((3, 0)), np.zeros((3, 0)), np.zeros(3), np.ones(3)
 
 
+def _trial_windows():
+    """One row at a §5 trial's M = 7440, four windows: from before the
+    first sample (j0 = 0), to past the last (j1 = M - 1), between two
+    samples (empty), and t0 > t1."""
+    rng = np.random.default_rng(7)
+    m = 7440
+    ts = np.cumsum(rng.uniform(0.5e-3, 1.5e-3, m))
+    vals = rng.uniform(60.0, 250.0, m)
+    t0 = np.array([ts[0] - 1.0, ts[100], ts[3000] + 1e-5, ts[5000]])
+    t1 = np.array([ts[4000], ts[-1] + 1.0, ts[3000] + 2e-5, ts[4000]])
+    return np.tile(ts, (4, 1)), np.tile(vals, (4, 1)), t0, t1
+
+
+def _pivot_repeats():
+    """Times repeated across the kernel's pivots (every 30th sample at
+    M = 7440, 256 threads), windows starting and ending on them."""
+    rng = np.random.default_rng(8)
+    m = 7440
+    ts = np.cumsum(rng.uniform(0.5e-3, 1.5e-3, m))
+    for p in (30, 60, 3000, 7410):
+        ts[p - 2:p + 3] = ts[p]
+    ts = np.maximum.accumulate(ts)
+    vals = rng.uniform(60.0, 250.0, m)
+    t0 = np.array([ts[30], ts[60], ts[3000], ts[30], ts[7410]])
+    t1 = np.array([ts[30], ts[3000], ts[7410], ts[60], ts[7410] + 1e-6])
+    return (np.tile(ts, (5, 1)), np.tile(vals, (5, 1)), t0, t1)
+
+
+def _around_block(m):
+    """Rows of M samples for M just below, at and above a multiple of the
+    kernel's block (256 threads up to M = 8192, then 512, then 1024)."""
+    return lambda: _random(m, n=6, m=m)
+
+
 CASES = {"adversarial": _adversarial, "single_column": _single_column,
-         "no_columns": _empty_columns,
-         **{f"random{s}": (lambda s=s: _random(s)) for s in range(3)}}
+         "no_columns": _empty_columns, "trial_windows": _trial_windows,
+         "pivot_repeats": _pivot_repeats,
+         **{f"random{s}": (lambda s=s: _random(s)) for s in range(3)},
+         **{f"m{m}": _around_block(m)
+            for m in (255, 256, 257, 8191, 8192, 8193, 16383, 16384, 16385)}}
 
 
 def _torch(args, device="cpu"):
@@ -195,3 +232,13 @@ def test_cuda_step_integrate_kernel_matches_plain(cuda, case, trapezoid):
     want = tb.step_integrate(*_torch(args), trapezoid=trapezoid).numpy()
     err = np.abs(got.cpu().numpy() - want)
     assert (err <= _tolerance(*args, trapezoid)).all(), err.max()
+
+
+def test_cuda_empty_launch_counts_nothing(cuda):
+    """The floor under a launch (chip_smoke.py 6e): an empty kernel with
+    step_integrate's grid, through the same launch path."""
+    args = _torch(_trial_windows(), cuda)
+    n0 = k_step.step_integrate.launches
+    k_step.empty_launch(args[0])
+    torch.cuda.synchronize()
+    assert k_step.step_integrate.launches == n0
