@@ -23,7 +23,7 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    ingest alone;
 4. a small fleet through the monitor on the card and on the CPU (the
    plain path the CPU tests hold against the JAX package), which must
-   agree;
+   agree; then phase 9 (below) on phase 3's fleet;
 5. the batched fleet audit's main path: ``log_filter`` against its plain
    version at small adversarial shapes and at each route's edges (G not
    a multiple of the tile's rows, G = 1, zero-width padding, S where a
@@ -86,7 +86,23 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    attention launch on the tensor cores),
    then ``prefill(2999) + decode_step`` against ``prefill(3000)`` (8b);
    the reduced model in float32 on the card and the CPU, which must
-   agree (8c).
+   agree (8c);
+9. the resilient monitor, run right after phase 4 on phase 3's
+   100,000-device fleet: 6 s of grid slabs into a monitor with
+   ``HealthPolicy()`` and an envelope, a seeded 10% of the devices
+   silent from 2 s (half of them back at 4.5 s) and 1% reading outside
+   the envelope; at every slab the health codes, counters, flags,
+   ``fleet_energy`` and ``by_label`` quarantine counts must be what the
+   policy's thresholds imply, and health tracking must leave every
+   accumulator bitwise a health-off twin's (ms per slab on and off, the
+   health step alone by CUDA events) (9a); the monitor checkpointed at a
+   slab boundary synchronously and asynchronously (bytes, seconds, the
+   time the asynchronous save blocks), restored on the card and resumed
+   bitwise, restored on the CPU and matching the card after one slab
+   (9b); ``MonitorSupervisor`` through one injected crash, bitwise the
+   uninterrupted run (9c); ``grow`` by 1,000 devices mid-stream, bitwise
+   a monitor built at full width from the start (9d).  Its kernel
+   launches are logged on their own line.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -96,6 +112,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -207,6 +224,24 @@ LM_CONSISTENCY_REL = 0.1
 #: 8c: card against CPU in float32, relative to the largest logit: the
 #: order of f32 sums in the products and in attention
 LM_REDUCED_TOL = 1e-4
+#: phase 9, the resilient monitor on the monitor phase's fleet: 6 s of
+#: grid slabs; from 2 s a seeded 10% of the devices silent and 1% reading
+#: outside the envelope, half of the silent back at 4.5 s; the health
+#: machine at most every 0.5 s; checkpoints of the monitor after slab 7
+#: (4 s), the supervisor checkpointing every 4 slabs and crashing at slab
+#: 6, grow by 1,000 devices at 3 s
+RES_STREAM_S = 6.0
+RES_FAULT_AT_S = 2.0
+RES_RETURN_AT_S = 4.5
+RES_ANOMALY_W = 5000.0
+RES_ENVELOPE_W = (0.0, 1000.0)
+RES_HEALTH_EVERY_S = 0.5
+RES_SAVE_AFTER = 7
+RES_CHECKPOINT_EVERY = 4
+RES_CRASH_AT = 6
+RES_GROW_AT_S = 3.0
+RES_GROW_BY = 1000
+RES_CKPT_DIR = os.path.join(ROOT, "build", "chip_ckpt")
 #: 7d: estimate_update_period's sensor classes and their periods
 #: (tests/test_microbench.py::test_update_period_catalog)
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
@@ -723,7 +758,7 @@ def run(dev, n_devices, stream_s, flat_s):
                  convert.monitor_arrays(mon))
     slabs = list(flat_slabs(bank, flat_s, dev))
     ingest_alone(slabs, False, "flat", n_flat, flat_counters, flat_state)
-    del mon, bank, slabs, flat_state
+    del mon, slabs, flat_state
 
     # -- 4. a small fleet on the card against the plain path on the CPU ------
     for grid in (True, False):
@@ -748,7 +783,419 @@ def run(dev, n_devices, stream_s, flat_s):
         log(f"small fleet grid={grid}: card matches the CPU plain path "
             f"(largest relative energy difference {worst:.3e})")
 
+    torch.cuda.empty_cache()
+    resilient(dev, names, shifts, bank)
     return list(results.values())
+
+
+# ---------------------------------------------------------------------------
+# the resilient monitor
+# ---------------------------------------------------------------------------
+def health_monitor(dev, names, shifts, *, health=True, tail=0):
+    """Phase 3's monitor with an envelope and, with ``health``, the health
+    machine; ``tail`` appends devices as ``grow`` would (identity
+    corrections, label "grown", windows disabled, no envelope)."""
+    from repro_torch.core.stream import (HealthPolicy, MonitorService,
+                                         StreamCorrections,
+                                         default_calibrations)
+    n = len(names)
+    corr = StreamCorrections.from_calibrations(
+        names, default_calibrations(names), device=dev)
+    labels = np.array(names, dtype=object)
+    lo = torch.full((n,), RES_ENVELOPE_W[0], dtype=torch.float64, device=dev)
+    hi = torch.full((n,), RES_ENVELOPE_W[1], dtype=torch.float64, device=dev)
+    a, b = 1.0 + shifts, 9.0 + shifts
+    if tail:
+        pad = StreamCorrections.identity(tail, device=dev)
+        corr = StreamCorrections(**{
+            k: torch.cat([getattr(corr, k), getattr(pad, k)])
+            for k in corr.__dataclass_fields__})
+        labels = np.concatenate([labels, np.full(tail, "grown", dtype=object)])
+
+        def cat(x, fill):
+            return torch.cat([x, torch.full((tail,), fill, dtype=x.dtype,
+                                            device=dev)])
+        lo, hi = cat(lo, -math.inf), cat(hi, math.inf)
+        a, b = cat(a, math.inf), cat(b, -math.inf)
+    mon = MonitorService(
+        n + tail, device=dev, labels=labels, corrections=corr,
+        envelope_w=(lo, hi), health=HealthPolicy() if health else None,
+        health_every_s=RES_HEALTH_EVERY_S)
+    mon.set_windows(a, b)
+    return mon
+
+
+def resilience_slabs(bank, dev):
+    """Phase 9's stream: the monitor phase's grid slabs over
+    [0, RES_STREAM_S), with a seeded 10% of the devices left out of the
+    rows from RES_FAULT_AT_S, half of those back from RES_RETURN_AT_S,
+    and a seeded 1% (disjoint) reading RES_ANOMALY_W from RES_FAULT_AT_S.
+    Also returns, per slab, rows 0..RES_GROW_BY-1's clean readings (the
+    grown devices' from RES_GROW_AT_S) and the masks."""
+    n = bank.n_devices
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 9)
+    perm = torch.randperm(n, generator=gen)
+    n_silent, n_anom = n // 10, n // 100
+    silent = torch.zeros(n, dtype=torch.bool)
+    silent[perm[:n_silent]] = True
+    back = torch.zeros(n, dtype=torch.bool)
+    back[perm[:n_silent][torch.randperm(n_silent, generator=gen)[
+        :n_silent // 2]]] = True
+    anom = torch.zeros(n, dtype=torch.bool)
+    anom[perm[n_silent:n_silent + n_anom]] = True
+    silent, back, anom = silent.to(dev), back.to(dev), anom.to(dev)
+    slabs = []
+    for ids, ts, vals in bank.iter_poll_slabs(
+            0.0, RES_STREAM_S, PERIOD_S, TICK_S, chunk_devices=n, grid=True):
+        t0 = float(ts[0])
+        tail = (vals[:RES_GROW_BY].clone() if t0 >= RES_GROW_AT_S - 1e-9
+                else None)
+        if t0 >= RES_FAULT_AT_S - 1e-9:
+            vals[anom] = RES_ANOMALY_W
+            gone = silent & ~back if t0 >= RES_RETURN_AT_S - 1e-9 else silent
+            ids, vals = ids[~gone], vals[~gone]
+        slabs.append((ids, ts, vals, tail))
+    return slabs, silent, back, anom
+
+
+def res_fingerprint(mon, t_end):
+    """Every query family, the counters and the health summary near the
+    stream's end (tests/test_resilience.py's ``_fingerprint`` at instants
+    inside the ring), as host arrays."""
+    def host(x):
+        return (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x))
+    fe = mon.fleet_energy(t=t_end - 0.002)
+    eb = mon.energy_between(t_end - 0.006, t_end - 0.001)
+    out = {
+        "fleet_per_device": fe.per_device_j, "fleet_covered": fe.covered,
+        "fleet_total": fe.total_j, "fleet_coverage": fe.coverage,
+        "fleet_n_q": fe.n_quarantined,
+        "fleet_sig": (fe.sigma_independent_j, fe.sigma_worstcase_j),
+        "fleet_latest": mon.fleet_energy().per_device_j,
+        "between_e": eb[0], "between_cov": eb[1],
+        "window": mon.window_energy(t=t_end),
+        "periods": mon.update_period_s(),
+        **{f"by_label.{k}.{m}": v for k, d in mon.by_label().items()
+           for m, v in d.items()},
+        **{f"flags.{k}": v for k, v in mon.flags(t=t_end).items()},
+        **{f"counters.{k}": v for k, v in mon.counters.items()},
+        **{f"health.{k}": v for k, v in mon.health_summary().items()},
+    }
+    return {k: host(v) for k, v in out.items()}
+
+
+def fingerprints_equal(a, b, label, skip=()):
+    check(set(a) == set(b), f"{label}: query families differ")
+    for k in a:
+        if k in skip:
+            continue
+        x, y = a[k], b[k]
+        check(x.shape == y.shape and np.array_equal(
+            x, y, equal_nan=x.dtype.kind == "f"), f"{label}: {k} differs")
+
+
+def arrays_equal(a, b, label, skip_moments=False):
+    """Two ``convert.monitor_arrays`` dicts, bitwise (the label moments
+    aside with ``skip_moments``: on the card they add in no fixed order)."""
+    check(set(a) == set(b), f"{label}: state keys differ")
+    for key in a:
+        if skip_moments and key.startswith("moments."):
+            continue
+        check(a[key].dtype == b[key].dtype
+              and np.array_equal(a[key], b[key],
+                                 equal_nan=a[key].dtype.kind == "f"),
+              f"{label}: {key} differs")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def resilient(dev, names, shifts, bank):
+    """Phase 9: health, checkpoints, the supervisor and ``grow`` at the
+    monitor phase's full width."""
+    from repro_torch import convert
+    from repro_torch.core.stream import (HEALTHY, QUARANTINED, STALE,
+                                         HealthTracker, MonitorSupervisor,
+                                         restore_monitor, save_monitor)
+    from repro_torch.core.stream.schema import HEALTH_FIELDS
+    from repro_torch.kernels.stream_ingest import stream_ingest
+    from repro_torch.kernels.stream_ingest_grid import stream_ingest_grid
+
+    shutil.rmtree(RES_CKPT_DIR, ignore_errors=True)
+    os.makedirs(RES_CKPT_DIR)
+    n = len(names)
+    t_phase = time.perf_counter()
+    slabs, silent, back, anom = resilience_slabs(bank, dev)
+    label_code = torch.tensor([0 if x == "a100" else 1 for x in names],
+                              device=dev)
+    log(f"9: {len(slabs)} slabs of [{n}, {slabs[0][1].numel()}]; "
+        f"{int(silent.sum())} devices silent from {RES_FAULT_AT_S} s, "
+        f"{int(back.sum())} of them back from {RES_RETURN_AT_S} s, "
+        f"{int(anom.sum())} reading {RES_ANOMALY_W} W from "
+        f"{RES_FAULT_AT_S} s (envelope {RES_ENVELOPE_W} W); slabs built in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    stream_ingest_grid.launches = 0
+    stream_ingest.launches = 0
+
+    # -- 9a. health at full width: the codes the policy implies at each
+    # evaluation, health on against off over the same slabs ---------------
+    mon = health_monitor(dev, names, shifts)
+    off = health_monitor(dev, names, shifts, health=False)
+    on_ms, off_ms = [], []
+    expect = torch.zeros(n, dtype=torch.int8, device=dev)
+    t_last_silent = None
+    evals = []
+    saved = {}
+    for k, (rows, ts, vals, _) in enumerate(slabs):
+        t_e = float(ts[-1])
+        before = mon.core._next_health_t
+        evaluated = False
+        for m, times in ((off, off_ms), (mon, on_ms)) if k % 2 else (
+                (mon, on_ms), (off, off_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.ingest_grid(rows, ts, vals)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if float(ts[0]) < RES_FAULT_AT_S - 1e-9:
+            t_last_silent = t_e
+        if mon.core._next_health_t != before:
+            evaluated = True
+            # an evaluation at t_e: stale past 1x, quarantined past 3x the
+            # silent threshold (5x the period estimate, else the
+            # calibration's), anomalous devices quarantined, returned
+            # devices healthy again (recover_after_s = 0)
+            est = mon.update_period_s()
+            after = 5.0 * torch.where(torch.isfinite(est), est,
+                                      mon.corrections.ref_period_s)
+            expect = torch.zeros_like(expect)
+            if float(ts[0]) >= RES_FAULT_AT_S - 1e-9:
+                gone = (silent & ~back
+                        if float(ts[0]) >= RES_RETURN_AT_S - 1e-9 else silent)
+                silent_for = t_e - t_last_silent
+                quar = (gone & (silent_for > 3.0 * after)) | anom
+                stale = gone & ~quar & (silent_for > 1.0 * after)
+                expect[stale] = STALE
+                expect[quar] = QUARANTINED
+                th = after[silent]
+                evals.append((t_e, float(th.min()), float(th.median()),
+                              float(th.max())))
+        check(torch.equal(mon.health.code, expect),
+              f"9a: health codes at {t_e} s differ from the policy's")
+        want = [int((expect == c).sum()) for c in (HEALTHY, STALE,
+                                                   QUARANTINED)]
+        c = mon.counters
+        check([c["n_healthy"], c["n_stale"], c["n_quarantined"]] == want,
+              f"9a: counters at {t_e} s: {c}, expected {want}")
+        fe = mon.fleet_energy()
+        check(fe.n_quarantined == want[2]
+              and fe.coverage == (n - want[2]) / n,
+              f"9a: fleet_energy at {t_e} s: n_quarantined "
+              f"{fe.n_quarantined}, coverage {fe.coverage}")
+        by_q = torch.bincount(label_code[expect == QUARANTINED],
+                              minlength=2).tolist()
+        bl = mon.by_label()
+        check([bl[x]["n_quarantined"] for x in ("a100", "h100_instant")]
+              == by_q, f"9a: by_label quarantine at {t_e} s")
+        fl = mon.flags(t=t_e)
+        check(torch.equal(fl["stale"], expect == STALE)
+              and torch.equal(fl["quarantined"], expect == QUARANTINED),
+              f"9a: flags at {t_e} s")
+        tag = " (evaluated)" if evaluated else ""
+        log(f"9a t={t_e:.3f} s{tag}: healthy {want[0]}, stale {want[1]}, "
+            f"quarantined {want[2]} (by label {by_q}), coverage "
+            f"{fe.coverage:.4f}, "
+            f"{c['devices_reporting']} reporting; slab {on_ms[-1]:.3f} ms "
+            f"health on, {off_ms[-1]:.3f} ms off")
+
+        if k == RES_SAVE_AFTER:
+            # -- 9b. save this slab boundary, synchronously and not -------
+            saved["arrays"] = convert.monitor_arrays(mon)
+            saved["counters"] = mon.counters
+            t0 = time.perf_counter()
+            save_monitor(mon, os.path.join(RES_CKPT_DIR, "sync"), step=k)
+            saved["sync_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            saved["mgr"] = save_monitor(
+                mon, os.path.join(RES_CKPT_DIR, "async"), step=k,
+                asynchronous=True)
+            saved["block_s"] = time.perf_counter() - t0
+    check(any(t >= RES_RETURN_AT_S for t, *_ in evals),
+          "9a: no evaluation after the silent devices returned")
+    for t_e, lo, med, hi in evals:
+        log(f"9a silent threshold at {t_e:.3f} s: min {lo:.4f} s, median "
+            f"{med:.4f} s, max {hi:.4f} s (stale past 1x, quarantined "
+            f"past 3x)")
+    a_on, a_off = convert.monitor_arrays(mon), convert.monitor_arrays(off)
+    arrays_equal(a_off, {k: v for k, v in a_on.items()
+                         if not k.startswith("health.")},
+                 "9a health on vs off", skip_moments=True)
+    # the health step alone, on a copy of the machine
+    ht = HealthTracker(*(getattr(mon.health, f).clone()
+                         for f in HEALTH_FIELDS))
+    core = mon.core
+    step_kw = dict(t_now=float(slabs[-1][1][-1]), policy=core.health_policy,
+                   period_est=core.periods.estimates(),
+                   ref_period_s=core.corrections.ref_period_s,
+                   silent_after_s=core.silent_after_s,
+                   drift_tau_s=core.drift_tau_s, drift_rel=core.drift_rel,
+                   drift_abs_w=core.drift_abs_w)
+    step_ms = time_ms(lambda: ht.update(core.state, **step_kw), 50)
+    est_ms = time_ms(lambda: core.periods.estimates(), 50)
+    med_on, med_off = float(np.median(on_ms)), float(np.median(off_ms))
+    log(f"9a ms per slab, {len(slabs)} slabs: health on median "
+        f"{med_on:.3f} (min {min(on_ms):.3f}, max {max(on_ms):.3f}), off "
+        f"median {med_off:.3f} (min {min(off_ms):.3f}, max "
+        f"{max(off_ms):.3f}); the health step alone {step_ms:.4f} ms on "
+        f"the card (CUDA events, {n} devices), the period estimates it "
+        f"reads {est_ms:.4f} ms")
+    want_fp = res_fingerprint(mon, float(slabs[-1][1][-1]))
+    del off, a_on, a_off, ht
+
+    # -- 9b. checkpoints: bytes, save and restore seconds, bitwise resume
+    # on the card, card -> CPU ------------------------------------------------
+    t0 = time.perf_counter()
+    saved["mgr"].wait()
+    wait_s = time.perf_counter() - t0
+    sync_dir = os.path.join(RES_CKPT_DIR, "sync", f"step_{RES_SAVE_AFTER}")
+    nbytes = dir_bytes(sync_dir)
+    check(nbytes == dir_bytes(os.path.join(
+        RES_CKPT_DIR, "async", f"step_{RES_SAVE_AFTER}")),
+        "9b: the two checkpoints differ in size")
+    log(f"9b checkpoint at slab {RES_SAVE_AFTER}: {nbytes} bytes on disk "
+        f"({nbytes / n:.1f} B a device, {len(os.listdir(sync_dir))} files); "
+        f"synchronous save {saved['sync_s']:.3f} s; asynchronous save "
+        f"blocked ingestion {saved['block_s']:.3f} s (the writer drained "
+        f"{wait_s:.3f} s after the stream's end)")
+    rest = slabs[RES_SAVE_AFTER + 1:]
+    restored = {}
+    for key, name, where in (("card", "sync", dev), ("async", "async", dev),
+                             ("cpu", "sync", torch.device("cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = restore_monitor(os.path.join(RES_CKPT_DIR, name), device=where)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(r.counters == saved["counters"],
+              f"9b: {name} restored on {where.type}: counters")
+        arrays_equal(convert.monitor_arrays(r), saved["arrays"],
+                     f"9b {name} restored on {where.type}")
+        log(f"9b restore of the {name} checkpoint on {where.type}: "
+            f"{secs:.3f} s, state bitwise the saved monitor's")
+        restored[key] = r
+    card, cpu = restored["card"], restored["cpu"]
+    rows, ts, vals, _ = rest[0]
+    t0 = time.perf_counter()
+    cpu.ingest_grid(rows.cpu(), ts.cpu(), vals.cpu())
+    cpu_s = time.perf_counter() - t0
+    card.ingest_grid(rows, ts, vals)
+    check(cpu.counters == card.counters, "9b: card and CPU count differently")
+    check(torch.equal(cpu.health.code, card.health.code.cpu()),
+          "9b: card and CPU health codes differ")
+    worst = assert_states_match(convert.monitor_arrays(card),
+                                convert.monitor_arrays(cpu),
+                                "9b card vs CPU after one slab", 1e-12)
+    log(f"9b the CPU restore took the next slab in {cpu_s:.2f} s (plain "
+        f"path) and matches the card's (largest relative energy "
+        f"difference {worst:.3e})")
+    del cpu, restored
+    for rows, ts, vals, _ in rest[1:]:
+        card.ingest_grid(rows, ts, vals)
+    fingerprints_equal(res_fingerprint(card, float(slabs[-1][1][-1])),
+                       want_fp, "9b resumed on the card")
+    check(torch.equal(card.health.code, mon.health.code),
+          "9b: resumed health codes differ")
+    log(f"9b resumed on the card after {len(rest)} slabs: every query "
+        f"family, the counters and the health codes bitwise the "
+        f"uninterrupted monitor's")
+    del card
+
+    # -- 9c. the supervisor: one crash mid-stream ---------------------------
+    crashed = {"left": 1}
+
+    def source():
+        for seq, (rows, ts, vals, _) in enumerate(slabs):
+            if crashed["left"] and seq == RES_CRASH_AT:
+                crashed["left"] = 0
+                raise RuntimeError("collector died")
+            yield seq, rows, ts, vals
+
+    sup = MonitorSupervisor(lambda: health_monitor(dev, names, shifts),
+                            os.path.join(RES_CKPT_DIR, "supervised"),
+                            checkpoint_every=RES_CHECKPOINT_EVERY,
+                            device=dev)
+    starts = []
+    start = sup.start
+
+    def timed_start(*a):
+        t0 = time.perf_counter()
+        out = start(*a)
+        torch.cuda.synchronize()
+        starts.append((time.perf_counter() - t0, sup._seq_done))
+        return out
+
+    sup.start = timed_start
+    t0 = time.perf_counter()
+    report = sup.run(source, grid=True)
+    torch.cuda.synchronize()
+    sup_s = time.perf_counter() - t0
+    check(report.n_crashes == 1 and report.n_restores == 1,
+          f"9c: {report}")
+    fingerprints_equal(res_fingerprint(sup.monitor, float(slabs[-1][1][-1])),
+                       want_fp, "9c supervised")
+    check(torch.equal(sup.monitor.health.code, mon.health.code),
+          "9c: supervised health codes differ")
+    log(f"9c supervisor, checkpoint every {RES_CHECKPOINT_EVERY} slabs, "
+        f"crash at slab {RES_CRASH_AT}: {report.n_slabs} slabs folded, "
+        f"{report.n_skipped} skipped, {report.n_checkpoints} checkpoints, "
+        f"{report.n_crashes} crash, {report.n_restores} restore; recovery "
+        f"(restore to the checkpoint after slab {starts[-1][1]}) "
+        f"{starts[-1][0]:.3f} s, the whole run {sup_s:.2f} s; bitwise the "
+        f"uninterrupted monitor's")
+    del sup
+
+    # -- 9d. grow mid-stream against the full width from the start ----------
+    grown = health_monitor(dev, names, shifts)
+    upfront = health_monitor(dev, names, shifts, tail=RES_GROW_BY)
+    t_grow = None
+    for rows, ts, vals, tail in slabs:
+        if tail is not None:
+            if grown.n_devices == n:
+                epoch = grown.epoch
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grown.grow(n + RES_GROW_BY,
+                           labels=np.full(RES_GROW_BY, "grown", dtype=object))
+                torch.cuda.synchronize()
+                t_grow = time.perf_counter() - t0
+                check(grown.epoch == epoch + 1,
+                      "9d: grow bumps the epoch once")
+            rows = torch.cat([rows, n + torch.arange(RES_GROW_BY, device=dev)])
+            vals = torch.cat([vals, tail])
+        for m in (grown, upfront):
+            m.ingest_grid(rows, ts, vals)
+    a, b = (res_fingerprint(m, float(slabs[-1][1][-1]))
+            for m in (grown, upfront))
+    fingerprints_equal(a, b, "9d grown vs up-front", skip=("health.epoch",))
+    arrays_equal(convert.monitor_arrays(grown),
+                 convert.monitor_arrays(upfront), "9d grown vs up-front",
+                 skip_moments=True)
+    check(bool(grown.state.has[n:].all()), "9d: grown devices not reporting")
+    log(f"9d grow {n} -> {n + RES_GROW_BY} at {RES_GROW_AT_S} s in "
+        f"{t_grow * 1e3:.2f} ms: every query family and state tensor "
+        f"(the label moments aside: they add in no fixed order on the "
+        f"card) bitwise a monitor built at {n + RES_GROW_BY}")
+    log(f"9: kernel launches in phase 9: stream_ingest_grid "
+        f"{stream_ingest_grid.launches}, stream_ingest "
+        f"{stream_ingest.launches}; phase 9 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    check(stream_ingest_grid.launches > 0, "9: no grid kernel launch")
+    del mon, grown, upfront, slabs
+    shutil.rmtree(RES_CKPT_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------

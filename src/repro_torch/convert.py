@@ -9,10 +9,11 @@ device, or turn the port's back into numpy so that the two packages can
 be compared like with like.  Field names follow the reference:
 ``SensorBank.true_gain/true_offset/true_phase/_model_gain``, the
 ``StreamCorrections`` fields, and the ``state.*`` / ``ring.*`` /
-``periods.*`` / ``moments.*`` keys of the reference's checkpoint layout
-(``repro.core.stream.schema.pack_monitor``).  :func:`onboard_sensor` reads
-a reference ``OnboardSensor``'s attributes by name; nothing of
-:mod:`repro` is imported.
+``periods.*`` / ``moments.*`` / ``health.*`` keys of the reference's
+checkpoint layout (``repro.core.stream.schema.pack_monitor``; a whole
+checkpoint crosses through :mod:`repro_torch.core.stream.checkpoint`).
+:func:`onboard_sensor` reads a reference ``OnboardSensor``'s attributes
+by name; nothing of :mod:`repro` is imported.
 """
 from __future__ import annotations
 
@@ -27,13 +28,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fleet_engine import SensorBank, StreamingMoments
 from repro_torch.core.ground_truth import ActivityTimeline
 from repro_torch.core.sensor import OnboardSensor, SensorProfile
+from repro_torch.core.stream import schema
 from repro_torch.core.stream.estimators import StreamCorrections
 from repro_torch.core.stream.monitor import MonitorService
 from repro_torch.core.stream.state import DeviceState
 from repro_torch.models import transformer
 
-_RING_SLOT_FIELDS = ("t", "v", "e_raw", "e_corr")
-_MOMENT_FIELDS = ("n", "mean", "m2", "mean_abs", "max_abs")
+_RING_SLOT_FIELDS = tuple(schema.RING_SLOT_FIELDS)
+_MOMENT_FIELDS = tuple(schema.MOMENT_FIELDS)
 
 
 def _numpy(x: torch.Tensor) -> np.ndarray:
@@ -121,10 +123,11 @@ def load_monitor_state(monitor: MonitorService,
                        arrays: Mapping[str, np.ndarray],
                        moment_labels: Sequence[str] = ()) -> None:
     """Overwrite ``monitor``'s online state with a reference monitor's:
-    the ``state.*``, ``ring.*``, ``periods.counts``/``periods.sums`` and
-    ``moments.*`` entries of ``pack_monitor``'s arrays (``moment_labels``
-    names the rows of ``moments.*``, as the reference's manifest meta
-    does).  Shapes must match the monitor's."""
+    the ``state.*``, ``ring.*``, ``periods.counts``/``periods.sums``,
+    ``moments.*`` and, on a health-tracked monitor, ``health.*`` entries
+    of ``pack_monitor``'s arrays (``moment_labels`` names the rows of
+    ``moments.*``, as the reference's manifest meta does).  Shapes must
+    match the monitor's."""
     core = monitor.core
     dev = core.device
 
@@ -145,6 +148,9 @@ def load_monitor_state(monitor: MonitorService,
             put(core.ring, name, f"ring.{name}")
     put(core.periods, "counts", "periods.counts")
     put(core.periods, "sums", "periods.sums")
+    if core.health is not None:
+        for name in schema.HEALTH_FIELDS:
+            put(core.health, name, f"health.{name}")
     core._moments = {}
     for i, label in enumerate(moment_labels):
         sm = StreamingMoments()
@@ -158,22 +164,12 @@ def load_monitor_state(monitor: MonitorService,
 def monitor_arrays(monitor: MonitorService) -> Dict[str, np.ndarray]:
     """A port monitor's online state as numpy copies under the keys of the
     reference's ``pack_monitor`` (``state.*``, ``ring.*``, ``periods.*``,
-    ``moments.*`` stacked over the sorted label names)."""
-    core = monitor.core
-    out = {f"state.{f.name}": _numpy(getattr(core.state, f.name))
-           for f in dataclasses.fields(DeviceState)}
-    out["ring.n_written"] = _numpy(core.ring.n_written)
-    if core.ring.slots:
-        for name in _RING_SLOT_FIELDS:
-            out[f"ring.{name}"] = _numpy(getattr(core.ring, name))
-    for name in ("edges", "counts", "sums"):
-        out[f"periods.{name}"] = _numpy(getattr(core.periods, name))
-    labels = sorted(core._moments)
-    for name in _MOMENT_FIELDS:
-        dtype = np.int64 if name == "n" else np.float64
-        out[f"moments.{name}"] = np.array(
-            [getattr(core._moments[lb], name) for lb in labels], dtype=dtype)
-    return out
+    ``moments.*`` stacked over the sorted label names, and ``health.*``
+    on a health-tracked monitor): the port's own pack, less its
+    ``corrections.*`` and ``config.*``."""
+    arrays, _ = schema.pack_monitor(monitor)
+    return {k: v for k, v in arrays.items()
+            if k.split(".")[0] not in ("corrections", "config")}
 
 
 def _from_numpy(x) -> torch.Tensor:

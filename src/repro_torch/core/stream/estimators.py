@@ -20,6 +20,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import profiles as _profiles
 from repro_torch.core.calibrate import CalibrationRecord, nominal_record
+from repro_torch.core.stream import schema
 
 F64, I64 = torch.float64, torch.int64
 
@@ -44,7 +45,8 @@ class OnlinePeriodEstimator:
         self.sums = torch.zeros((n_devices, n_bins), dtype=F64, device=dev)
 
     def nbytes(self) -> int:
-        return self.edges.nbytes + self.counts.nbytes + self.sums.nbytes
+        return schema.registry_nbytes(self, schema.PERIOD_FIELDS,
+                                      "OnlinePeriodEstimator")
 
     def record(self, dev: torch.Tensor, durations: torch.Tensor) -> None:
         """Fold one slab's completed runs (device ids + durations).

@@ -9,8 +9,11 @@ kernel) and ``ingest_grid`` for clean rectangular slabs (the CUDA
 ``stream_ingest_grid`` kernel).  It serves no queries: readers go through
 the :class:`~.snapshot.MonitorSnapshot` the façade publishes.
 
-Every slab that lands bumps :attr:`epoch`.  Health tracking, ``grow``
-and checkpointing belong to a later slice of the port.
+Every slab that lands bumps :attr:`epoch`.  With a
+:class:`~.health.HealthPolicy` the health machine runs at slab
+boundaries (at most every ``health_every_s`` of stream time);
+:meth:`IngestCore.grow` widens the monitor mid-stream; the state's field
+set is :mod:`.schema`'s, which checkpoints and ``nbytes()`` walk.
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.fleet_engine import StreamingMoments
+from repro_torch.core.stream import schema
 from repro_torch.core.stream.estimators import (OnlinePeriodEstimator,
                                                 StreamCorrections)
+from repro_torch.core.stream.health import HealthPolicy, HealthTracker
 from repro_torch.core.stream.state import DeviceState, IngestBuffer
 from repro_torch.kernels.stream_ingest import stream_ingest
 from repro_torch.kernels.stream_ingest_grid import stream_ingest_grid
@@ -67,12 +72,9 @@ class IngestCore:
                  drift_rel: float = 0.25,
                  drift_abs_w: float = 5.0,
                  strict_ids: bool = True,
-                 health=None,
+                 health: Optional[HealthPolicy] = None,
+                 health_every_s: float = 0.0,
                  device: DeviceLike = "cuda"):
-        if health is not None:
-            raise NotImplementedError(
-                "health tracking is not ported yet (it comes with the "
-                "resilience slice); build the monitor without health=")
         if n_devices < 1:
             raise ValueError("need at least one device")
         if integration not in _INTEGRATIONS:
@@ -94,12 +96,7 @@ class IngestCore:
             if self.labels.shape != (n,):
                 raise ValueError(f"labels must be [{n}], "
                                  f"got {self.labels.shape}")
-        # integer label codes keep strings off the hot path
-        names, codes = np.unique(self.labels.astype(str),
-                                 return_inverse=True)
-        self._label_names = [str(x) for x in names]
-        self._label_codes = torch.as_tensor(codes.astype(np.int64),
-                                            device=dev)
+        self._set_label_codes()
         self.trapezoid = integration == "trapezoid"
         if max_hold_s is None:
             self._max_hold = torch.full((n,), float("inf"), dtype=F64,
@@ -134,7 +131,23 @@ class IngestCore:
         self._n_invalid = 0
         self.strict_ids = bool(strict_ids)
         self._n_rejected = 0
+        # with a policy, the health machine runs at slab boundaries, at
+        # most every health_every_s of stream time
+        self.health_policy = health
+        self.health = (HealthTracker.zeros(n, dev) if health is not None
+                       else None)
+        self.health_every_s = float(health_every_s)
+        self._next_health_t = -np.inf
         self.epoch = 0
+
+    def _set_label_codes(self) -> None:
+        """Integer label codes (new tensors) from :attr:`labels`: they keep
+        strings off the hot path."""
+        names, codes = np.unique(self.labels.astype(str),
+                                 return_inverse=True)
+        self._label_names = [str(x) for x in names]
+        self._label_codes = torch.as_tensor(codes.astype(np.int64),
+                                            device=self.device)
 
     # -- configuration ----------------------------------------------------
     def set_windows(self, a, b) -> None:
@@ -151,9 +164,94 @@ class IngestCore:
         self.epoch += 1
 
     def nbytes(self) -> int:
-        """Resident bytes of the state that scales with fleet size."""
+        """Resident bytes of the state that scales with fleet size, summed
+        through the schema registries that checkpoints walk: a state
+        field added without a schema update fails here first."""
         return (self.state.nbytes() + self.ring.nbytes()
-                + self.periods.nbytes())
+                + self.periods.nbytes()
+                + (self.health.nbytes() if self.health is not None else 0))
+
+    def grow(self, n_new: int, *,
+             corrections: Optional[StreamCorrections] = None,
+             labels=None) -> None:
+        """Widen the monitor to ``n_new`` devices mid-stream, leaving what
+        is accumulated untouched: afterwards every state tensor equals what
+        a monitor built at the full width from the start would hold, the
+        appended rows in their zero state.  ``corrections``/``labels``
+        cover the appended ``n_new - n_devices`` rows (identity
+        corrections and the ``"all"`` label by default); their windows
+        start disabled and their hold and envelope unlimited, a fresh
+        monitor's defaults.  Every per-device tensor is replaced by a new
+        one, never written into, so a held snapshot keeps its answers;
+        the epoch bumps once."""
+        n_old, dev = self.n_devices, self.device
+        n_new = int(n_new)
+        if n_new < n_old:
+            raise ValueError(f"cannot shrink a monitor: {n_old} -> {n_new}")
+        if n_new == n_old:
+            return
+        n_add = n_new - n_old
+        tail_corr = (corrections.to(dev) if corrections is not None
+                     else StreamCorrections.identity(n_add, device=dev))
+        if tail_corr.n_devices != n_add:
+            raise ValueError(f"tail corrections cover "
+                             f"{tail_corr.n_devices} devices, growing "
+                             f"by {n_add}")
+        if labels is None:
+            tail_labels = np.full(n_add, "all", dtype=object)
+        else:
+            tail_labels = np.asarray(labels, dtype=object)
+            if tail_labels.shape != (n_add,):
+                raise ValueError(f"tail labels must be [{n_add}], "
+                                 f"got {tail_labels.shape}")
+        # per-device state walked through the schema registries (before
+        # anything changes), so a field added without growth support
+        # fails loudly and leaves the monitor as it was
+        old_state = schema.check_registry(
+            self.state, schema.DEVICE_STATE_FIELDS, "DeviceState")
+        old_ring = schema.check_registry(
+            self.ring, schema.RING_FIELDS, "IngestBuffer",
+            optional=schema.RING_SLOT_FIELDS)
+        old_health = (schema.check_registry(
+            self.health, schema.HEALTH_FIELDS, "HealthTracker")
+            if self.health is not None else {})
+
+        self.corrections = StreamCorrections(**{
+            f.name: torch.cat([getattr(self.corrections, f.name),
+                               getattr(tail_corr, f.name)])
+            for f in dataclasses.fields(StreamCorrections)})
+        self.labels = np.concatenate([self.labels, tail_labels])
+        self._set_label_codes()
+        pad = DeviceState.zeros(n_add, dev)
+        self.state = DeviceState(**{k: torch.cat([v, getattr(pad, k)])
+                                    for k, v in old_state.items()})
+        ring_pad = IngestBuffer(n_add, self.ring.slots, dev)
+        for k, v in old_ring.items():
+            setattr(self.ring, k, torch.cat([v, getattr(ring_pad, k)]))
+        per = self.periods
+        per.counts = torch.cat([per.counts, torch.zeros(
+            (n_add, per.counts.shape[1]), dtype=I64, device=dev)])
+        per.sums = torch.cat([per.sums, torch.zeros(
+            (n_add, per.sums.shape[1]), dtype=F64, device=dev)])
+        if self.health is not None:
+            health_pad = HealthTracker.zeros(n_add, dev)
+            for k, v in old_health.items():
+                setattr(self.health, k,
+                        torch.cat([v, getattr(health_pad, k)]))
+
+        # configuration: the tail takes a fresh monitor's defaults
+        def cat(x, fill):
+            return torch.cat([x, torch.full((n_add,), fill, dtype=F64,
+                                            device=dev)])
+
+        inf = float("inf")
+        self._max_hold = cat(self._max_hold, inf)
+        self._env_lo = cat(self._env_lo, -inf)
+        self._env_hi = cat(self._env_hi, inf)
+        self._win_a = cat(self._win_a, inf)
+        self._win_b = cat(self._win_b, -inf)
+        self.n_devices = n_new
+        self.epoch += 1
 
     # -- ingestion --------------------------------------------------------
     def _check_ids(self, dev: torch.Tensor) -> Optional[torch.Tensor]:
@@ -292,6 +390,8 @@ class IngestCore:
         self._merge_label_moments(self._label_codes[u_dev], out.counts,
                                   out.sum_vc, out.sum_vc2, out.sum_abs_vc,
                                   out.max_abs_vc)
+        if self.health is not None:
+            self._maybe_update_health(float(out.new_t.max()))
         return IngestReport(k, n_dup, n_late, n_invalid, int(u_dev.numel()),
                             n_rej)
 
@@ -327,12 +427,18 @@ class IngestCore:
                 return IngestReport(0, 0, 0, 0, 0, n_rej)
 
         st = self.state
-        clean = bool(torch.stack([
+        clean = torch.stack([
             (torch.diff(dev) > 0).all(),
             (torch.diff(ts) > 0).all(),
             torch.isfinite(ts).all(),
             torch.isfinite(vals).all(),
-            ~(st.has[dev] & (ts[0] <= st.last_t[dev])).any()]).all())
+            ~(st.has[dev] & (ts[0] <= st.last_t[dev])).any()]).all()
+        if self.health is None:
+            clean = bool(clean)
+        else:
+            # the health step's clock comes back in the same transfer
+            clean, t_last = torch.stack([clean.to(F64), ts[-1]]).tolist()
+            clean = bool(clean)
         if not clean:
             rep = self.ingest(torch.repeat_interleave(dev, m), ts.repeat(d),
                               vals.reshape(-1))
@@ -386,6 +492,8 @@ class IngestCore:
                                   torch.full_like(dev, m), out.sum_vc,
                                   out.sum_vc2, out.sum_abs_vc,
                                   out.max_abs_vc)
+        if self.health is not None:
+            self._maybe_update_health(t_last)
         return IngestReport(d * m, 0, 0, 0, d, n_rej)
 
     def _merge_label_moments(self, codes, n, s1, s2, sa, mx):
@@ -410,18 +518,59 @@ class IngestCore:
                     nb, float(mean), m2, float(sah[ci] / nb),
                     float(mxh[ci]))
 
+    # -- health -----------------------------------------------------------
+    def _maybe_update_health(self, t_now: float) -> None:
+        """Run the health machine at a slab boundary, at most once per
+        ``health_every_s`` of stream time.  Time going backward across
+        slabs (chunked replays restart the clock per device chunk) never
+        triggers a step.  Whether anything changed is not read back: the
+        slab already bumped the epoch."""
+        if self.health is None or not np.isfinite(t_now):
+            return
+        if t_now < self._next_health_t:
+            return
+        self._next_health_t = t_now + self.health_every_s
+        self._health_step(t_now)
+
+    def _health_step(self, t_now: float) -> torch.Tensor:
+        return self.health.update(
+            self.state, t_now=float(t_now), policy=self.health_policy,
+            period_est=self.periods.estimates(),
+            ref_period_s=self.corrections.ref_period_s,
+            silent_after_s=self.silent_after_s,
+            drift_tau_s=self.drift_tau_s, drift_rel=self.drift_rel,
+            drift_abs_w=self.drift_abs_w)
+
+    def update_health(self, t_now: float) -> bool:
+        """Evaluate one health step at wall-clock ``t_now`` (no-op without
+        a policy).  Returns True when any device changed state (a read
+        back from the device); a call that changes state bumps the epoch
+        (ingestion's own slab-boundary steps ride the slab's bump)."""
+        if self.health is None:
+            return False
+        changed = bool(self._health_step(t_now))
+        if changed:
+            self.epoch += 1
+        return changed
+
     # -- accounting -------------------------------------------------------
     @property
     def counters(self) -> Dict[str, int]:
         st = self.state
-        acc, dup, late, rep = torch.stack([
-            st.n_samples.sum(), st.n_dup.sum(), st.n_late.sum(),
-            st.has.sum()]).tolist()
-        return {
-            "accepted": int(acc),
-            "duplicates": int(dup),
-            "late": int(late),
+        sums = [st.n_samples.sum(), st.n_dup.sum(), st.n_late.sum(),
+                st.has.sum()]
+        if self.health is not None:
+            sums += self.health.count_tensors()
+        vals = [int(x) for x in torch.stack(sums).tolist()]
+        out = {
+            "accepted": vals[0],
+            "duplicates": vals[1],
+            "late": vals[2],
             "invalid": self._n_invalid,
             "rejected": self._n_rejected,
-            "devices_reporting": int(rep),
+            "devices_reporting": vals[3],
         }
+        if self.health is not None:
+            out.update(zip(("n_healthy", "n_stale", "n_quarantined"),
+                           vals[4:]))
+        return out

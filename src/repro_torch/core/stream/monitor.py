@@ -1,10 +1,11 @@
 """The streaming fleet monitor façade: ingest core + snapshot serving.
 
 The counterpart of :mod:`repro.core.stream.monitor`.
-:class:`MonitorService` delegates ingestion to
-:class:`~.ingest.IngestCore` and every query to the current epoch's
-:class:`~.snapshot.MonitorSnapshot`, published lazily at most once per
-epoch.
+:class:`MonitorService` delegates ingestion, ``grow`` and the health
+machine to :class:`~.ingest.IngestCore` and every query to the current
+epoch's :class:`~.snapshot.MonitorSnapshot`, published lazily at most
+once per epoch.  :mod:`.checkpoint` saves and restores it bitwise, and
+:mod:`.supervisor` runs its ingest loop through crashes.
 """
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ import torch
 
 from repro_torch._device import DeviceLike
 from repro_torch.core.stream.estimators import StreamCorrections
+from repro_torch.core.stream.health import HealthPolicy
 from repro_torch.core.stream.ingest import IngestCore, IngestReport
 from repro_torch.core.stream.snapshot import FleetEnergy, MonitorSnapshot
 
-__all__ = ["FleetEnergy", "IngestReport", "MonitorService"]
+__all__ = ["FleetEnergy", "HealthPolicy", "IngestReport", "MonitorService"]
 
 
 class MonitorService:
@@ -39,9 +41,11 @@ class MonitorService:
     (recent samples kept per device for past queries), ``period_bins`` /
     ``min_runs`` (the online period estimator), ``silent_after_s`` and
     ``drift_*`` (the flags), ``strict_ids`` (raise on out-of-range ids
-    rather than reject and count them) and ``device`` (``"cuda"`` by
-    default; ``"cpu"`` runs the plain PyTorch path).  ``health=`` is not
-    ported yet and raises.
+    rather than reject and count them), ``health`` (a
+    :class:`HealthPolicy`: run the health machine at slab boundaries, at
+    most every ``health_every_s`` of stream time, and answer aggregates
+    in degraded mode) and ``device`` (``"cuda"`` by default; ``"cpu"``
+    runs the plain PyTorch path).
     """
 
     def __init__(self, n_devices: int, *,
@@ -52,7 +56,8 @@ class MonitorService:
                  min_runs: int = 3, silent_after_s: Optional[float] = None,
                  drift_tau_s: float = 30.0, drift_rel: float = 0.25,
                  drift_abs_w: float = 5.0, strict_ids: bool = True,
-                 health=None, device: DeviceLike = "cuda"):
+                 health: Optional[HealthPolicy] = None,
+                 health_every_s: float = 0.0, device: DeviceLike = "cuda"):
         self._core = IngestCore(
             n_devices, corrections=corrections, labels=labels,
             integration=integration, max_hold_s=max_hold_s,
@@ -60,7 +65,8 @@ class MonitorService:
             period_bins=period_bins, min_runs=min_runs,
             silent_after_s=silent_after_s, drift_tau_s=drift_tau_s,
             drift_rel=drift_rel, drift_abs_w=drift_abs_w,
-            strict_ids=strict_ids, health=health, device=device)
+            strict_ids=strict_ids, health=health,
+            health_every_s=health_every_s, device=device)
         self._snap: Optional[MonitorSnapshot] = None
 
     # -- layer access ------------------------------------------------------
@@ -93,6 +99,11 @@ class MonitorService:
         return self._core.corrections
 
     @property
+    def labels(self):
+        """[N] workload labels (an object array on the host)."""
+        return self._core.labels
+
+    @property
     def state(self):
         """Live (mutable) per-device accumulators; readers wanting a
         stable view use :meth:`snapshot`."""
@@ -108,6 +119,13 @@ class MonitorService:
 
     def nbytes(self) -> int:
         return self._core.nbytes()
+
+    nbytes.__doc__ = IngestCore.nbytes.__doc__
+
+    def grow(self, n_new: int, *, corrections=None, labels=None) -> None:
+        self._core.grow(n_new, corrections=corrections, labels=labels)
+
+    grow.__doc__ = IngestCore.grow.__doc__
 
     # -- configuration and ingestion ---------------------------------------
     def set_windows(self, a, b) -> None:
@@ -163,3 +181,24 @@ class MonitorService:
         return self.snapshot().flags(t)
 
     flags.__doc__ = MonitorSnapshot.flags.__doc__
+
+    # -- health --------------------------------------------------------------
+    @property
+    def health(self):
+        """The live :class:`~.health.HealthTracker` (None unless built with
+        a ``health=`` policy)."""
+        return self._core.health
+
+    @property
+    def health_policy(self) -> Optional[HealthPolicy]:
+        return self._core.health_policy
+
+    def update_health(self, t_now: float) -> bool:
+        return self._core.update_health(t_now)
+
+    update_health.__doc__ = IngestCore.update_health.__doc__
+
+    def health_summary(self) -> Dict[str, float]:
+        return self.snapshot().health_summary()
+
+    health_summary.__doc__ = MonitorSnapshot.health_summary.__doc__

@@ -13,6 +13,11 @@ raises unless ``t0 <= t1``; instants beyond the ring horizon answer nan
 with ``covered=False``; ``by_label`` groups with no covered device report
 nan ``mean_j``/``std_j``.  Per-device results are tensors on the
 monitor's device; totals and moments are Python floats.
+
+On a health-tracked monitor the snapshot also freezes the health codes:
+quarantined devices are left out of ``fleet_energy`` and ``by_label``
+aggregates (degraded mode, see :class:`FleetEnergy`), and ``flags``
+reports the machine's ``stale``/``quarantined`` states.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import math
 import torch
 
 from repro_torch.core.fleet_engine import StreamingMoments
+from repro_torch.core.stream.health import QUARANTINED, STALE
 from repro_torch.engine_backend import torch_backend as _tb
 
 F64 = torch.float64
@@ -37,7 +43,14 @@ CALIBRATED_TOLERANCE = 0.01
 class FleetEnergy:
     """A fleet-energy answer with uncertainty bounds.  ``per_device_j`` is
     nan where ``covered`` is False; totals and sigmas are over covered
-    devices (independent 1/√N and worst-case correlated bounds)."""
+    devices (independent 1/√N and worst-case correlated bounds).
+
+    Degraded mode (health-tracked monitors): quarantined devices are left
+    out of ``total_j`` and the sigmas (their ``per_device_j`` rows stay),
+    the sigmas widen by ``n_covered / n_included``, and ``coverage`` is
+    the included fraction of the fleet; ``inf`` sigmas when every covered
+    device is quarantined.  Without health tracking ``coverage`` is the
+    covered fraction and ``n_quarantined`` 0."""
 
     t: Optional[float]
     corrected: bool
@@ -66,7 +79,7 @@ class MonitorSnapshot:
                  period_est, moments, counters, corrections,
                  label_names, label_codes, win_a, win_b, max_hold,
                  silent_after_s,
-                 drift_tau_s, drift_rel, drift_abs_w):
+                 drift_tau_s, drift_rel, drift_abs_w, health_code=None):
         self.epoch = epoch
         self.n_devices = n_devices
         self.state = state
@@ -85,6 +98,7 @@ class MonitorSnapshot:
         self.drift_tau_s = drift_tau_s
         self.drift_rel = drift_rel
         self.drift_abs_w = drift_abs_w
+        self._health_code = health_code      # [N] int8 codes or None
         self._flavor_cache: Dict[bool, tuple] = {}
 
     @classmethod
@@ -107,7 +121,9 @@ class MonitorSnapshot:
             max_hold=core._max_hold.clone(),
             silent_after_s=core.silent_after_s,
             drift_tau_s=core.drift_tau_s, drift_rel=core.drift_rel,
-            drift_abs_w=core.drift_abs_w)
+            drift_abs_w=core.drift_abs_w,
+            health_code=(core.health.code.clone()
+                         if core.health is not None else None))
 
     @property
     def device(self) -> torch.device:
@@ -178,24 +194,44 @@ class MonitorSnapshot:
                            zero, out)
 
     # -- result assembly (shared with the batched executor) ---------------
+    @property
+    def active_mask(self) -> Optional[torch.Tensor]:
+        """[N] bool, False where the health machine quarantined the device;
+        None without health tracking."""
+        if self._health_code is None:
+            return None
+        return self._health_code != QUARANTINED
+
     def fleet_from_rows(self, t: Optional[float], corrected: bool,
                         e: torch.Tensor, covered: torch.Tensor
                         ) -> FleetEnergy:
-        """Fold one [N] energy row into a :class:`FleetEnergy`."""
+        """Fold one [N] energy row into a :class:`FleetEnergy` (the
+        reduction of the direct and the batched paths), degraded mode
+        included."""
         zero = torch.zeros((), dtype=F64, device=self.device)
         tol = torch.where(self.corrections.calibrated,
                           zero + CALIBRATED_TOLERANCE, zero + SHUNT_TOLERANCE)
-        sig = torch.where(covered, tol * torch.nan_to_num(e).abs(), zero)
-        total, s2, s1, n_inc, n_rep = torch.stack([
-            torch.where(covered, e, zero).nansum(), (sig ** 2).sum(),
-            sig.sum(), covered.sum().to(F64),
-            self.state.has.sum().to(F64)]).tolist()
+        active = self.active_mask
+        include = covered if active is None else covered & active
+        sig = torch.where(include, tol * torch.nan_to_num(e).abs(), zero)
+        total, s2, s1, n_inc, n_rep, n_q = torch.stack([
+            torch.where(include, e, zero).nansum(), (sig ** 2).sum(),
+            sig.sum(), include.sum().to(F64), self.state.has.sum().to(F64),
+            (zero if active is None
+             else (covered & ~active).sum().to(F64))]).tolist()
+        n_inc, n_q = int(n_inc), int(n_q)
+        if n_q == 0:
+            si, sw = math.sqrt(s2), float(s1)
+        elif n_inc:
+            widen = (n_inc + n_q) / n_inc
+            si, sw = widen * math.sqrt(s2), widen * s1
+        else:           # every covered device quarantined: the answer
+            si = sw = math.inf          # carries no information
         return FleetEnergy(
             t=t, corrected=corrected, per_device_j=e, covered=covered,
             total_j=float(total), n_reporting=int(n_rep),
-            sigma_independent_j=float(math.sqrt(s2)),
-            sigma_worstcase_j=float(s1),
-            coverage=int(n_inc) / self.n_devices, n_quarantined=0)
+            sigma_independent_j=float(si), sigma_worstcase_j=float(sw),
+            coverage=n_inc / self.n_devices, n_quarantined=n_q)
 
     @staticmethod
     def between_from_rows(e0, c0, e1, c1) -> Tuple[torch.Tensor,
@@ -206,10 +242,20 @@ class MonitorSnapshot:
     def label_stats(self, e: torch.Tensor, covered: torch.Tensor
                     ) -> Dict[str, Dict[str, float]]:
         """Per-label count, total and moments of the covered devices'
-        energies ``e`` [N] (the reduction behind :meth:`by_label`)."""
+        energies ``e`` [N] (the reduction behind :meth:`by_label` and the
+        batched executor's); quarantined devices are left out and counted
+        per label as ``n_quarantined``."""
         out: Dict[str, Dict[str, float]] = {}
-        sizes = torch.bincount(self._label_codes,
-                               minlength=len(self._label_names)).tolist()
+        nl = len(self._label_names)
+        active = self.active_mask
+        counts = [torch.bincount(self._label_codes, minlength=nl)]
+        if active is not None:
+            counts.append(torch.bincount(
+                self._label_codes[covered & ~active], minlength=nl))
+            covered = covered & active
+        counts = torch.stack(counts).tolist()
+        sizes = counts[0]
+        n_quar = counts[1] if active is not None else [0] * nl
         for ci, label in enumerate(self._label_names):
             vals = e[(self._label_codes == ci) & covered]
             sm = StreamingMoments().update(vals)
@@ -218,7 +264,7 @@ class MonitorSnapshot:
             out[label] = {
                 "n_devices": int(sizes[ci]),
                 "n_covered": n_cov,
-                "n_quarantined": 0,
+                "n_quarantined": int(n_quar[ci]),
                 "total_j": float(vals.sum()) if n_cov else 0.0,
                 "mean_j": stats["mean_err"] if n_cov else float("nan"),
                 "std_j": stats["std_err"] if n_cov else float("nan"),
@@ -285,8 +331,8 @@ class MonitorSnapshot:
     def flags(self, t: Optional[float] = None) -> Dict[str, torch.Tensor]:
         """Per-device flags at wall-clock ``t`` (default: the newest
         sample fleet-wide): ``reporting``, ``silent``, ``anomalous``,
-        ``drifting``; ``stale``/``quarantined`` stay all-False (health
-        tracking is not ported yet)."""
+        ``drifting``, and the health machine's ``stale``/``quarantined``
+        states (all-False without health tracking)."""
         st = self.state
         if t is None:
             t = (float(st.last_t[st.has].max()) if bool(st.has.any())
@@ -304,14 +350,38 @@ class MonitorSnapshot:
         drifting = (st.has & (dur > 2.0 * self.drift_tau_s)
                     & (dev > torch.clamp_min(self.drift_rel * mean_p.abs(),
                                              self.drift_abs_w)))
+        code = self._health_code
         none = torch.zeros_like(st.has)
         return {
             "reporting": st.has.clone(),
             "silent": silent,
             "anomalous": st.n_out > 0,
             "drifting": torch.where(torch.isfinite(mean_p), drifting, False),
-            "stale": none,
-            "quarantined": none.clone(),
+            "stale": code == STALE if code is not None else none,
+            "quarantined": (code == QUARANTINED if code is not None
+                            else none.clone()),
+        }
+
+    def health_summary(self) -> Dict[str, float]:
+        """Fleet-level health digest: the machine's population counts and
+        the coverage degraded-mode queries report.  Without health
+        tracking every device counts healthy and ``tracked`` is False."""
+        n = self.n_devices
+        code = self._health_code
+        sums = [self.state.has.sum()]
+        if code is not None:
+            sums += [(code == STALE).sum(), (code == QUARANTINED).sum()]
+        vals = [int(x) for x in torch.stack(sums).tolist()]
+        n_stale, n_quar = vals[1:] if code is not None else (0, 0)
+        return {
+            "tracked": code is not None,
+            "epoch": int(self.epoch),
+            "n_devices": n,
+            "n_reporting": vals[0],
+            "n_healthy": n - n_stale - n_quar,
+            "n_stale": n_stale,
+            "n_quarantined": n_quar,
+            "coverage": (n - n_quar) / n,
         }
 
     @property

@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.stream import schema
+
 F64, I64 = torch.float64, torch.int64
 
 
@@ -59,8 +61,8 @@ class DeviceState:
                               for f in dataclasses.fields(self)})
 
     def nbytes(self) -> int:
-        return sum(getattr(self, f.name).nbytes
-                   for f in dataclasses.fields(self))
+        return schema.registry_nbytes(self, schema.DEVICE_STATE_FIELDS,
+                                      "DeviceState")
 
 
 class IngestBuffer:
@@ -85,10 +87,9 @@ class IngestBuffer:
             self.e_corr = torch.zeros(shape, dtype=F64, device=device)
 
     def nbytes(self) -> int:
-        arrays = [self.n_written]
-        if self.slots:
-            arrays += [self.t, self.v, self.e_raw, self.e_corr]
-        return sum(a.nbytes for a in arrays)
+        return schema.registry_nbytes(self, schema.RING_FIELDS,
+                                      "IngestBuffer",
+                                      optional=schema.RING_SLOT_FIELDS)
 
     def write(self, dev, ordinal, group_count, t, v, e_raw, e_corr,
               u_dev, counts) -> None:

@@ -9,7 +9,10 @@ any mix of ``fleet_energy`` / ``window_energy`` / ``energy_between`` /
   ``snapshot_energy_at`` call on the card ([Q, N]);
 * results are memoised in an LRU cache keyed ``(query, epoch)``, so a
   result is never served against another snapshot than its own;
-* duplicate queries inside one batch are computed once and fanned out.
+* duplicate queries inside one batch are computed once and fanned out;
+* ``fleet_energy`` and ``by_label`` answers go through the snapshot's
+  ``fleet_from_rows`` and ``label_stats``, so on a health-tracked monitor
+  they leave quarantined devices out exactly as the direct path does.
 
 Usage::
 

@@ -25,7 +25,7 @@ from repro.core.stream import schema  # noqa: E402
 from repro.serve.monitor_service import (  # noqa: E402
     MonitorQuery as RQuery, MonitorQueryService as RService)
 from repro_torch import convert  # noqa: E402
-from repro_torch.core.stream import MonitorService  # noqa: E402
+from repro_torch.core.stream import HealthPolicy, MonitorService  # noqa: E402
 from repro_torch.serve.monitor_service import (  # noqa: E402
     MonitorQuery, MonitorQueryService)
 
@@ -312,8 +312,9 @@ def test_query_service_cache_is_keyed_by_epoch():
 # configuration edges and the state carried across by convert.py
 # ---------------------------------------------------------------------------
 def test_configuration_edges():
-    with pytest.raises(NotImplementedError, match="health"):
-        MonitorService(3, device=CPU, health=object())
+    with pytest.raises(ValueError, match="stale_factor"):
+        MonitorService(3, device=CPU,
+                       health=HealthPolicy(stale_factor=0.0))
     with pytest.raises(ValueError):
         MonitorService(3, device=CPU, integration="simpson")
     port = MonitorService(3, device=CPU)
