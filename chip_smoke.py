@@ -102,7 +102,25 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    (9b); ``MonitorSupervisor`` through one injected crash, bitwise the
    uninterrupted run (9c); ``grow`` by 1,000 devices mid-stream, bitwise
    a monitor built at full width from the start (9d).  Its kernel
-   launches are logged on their own line.
+   launches are logged on their own line;
+10. the monitor's sources, right after phase 9 on phase 3's fleet: 2 s
+   of flat [100000, 500] slabs through ``replay(faults=...)`` with every
+   fault of the bank at once into a ``strict_ids=False`` monitor, whose
+   counters must add up to what the ``InjectionLog`` implies; a second
+   replay bitwise the first; ``MonitorSupervisor`` through one crash, fed
+   by the port's injector, bitwise the uninterrupted replay; the same
+   faults over 1,000 devices on the card and the CPU, which must agree
+   (ms a slab for injection and ingest, 10a); ``stream_fleet`` over
+   100,000 devices against the offline ``integrate_polled`` and
+   ``fleet_audit``'s naive energies at 1e-11 (10b); a
+   ``SimulatedSampler`` polling the fleet 500 times into a
+   ``CollectorPipeline`` with active ``ArtifactStore`` records for 1% of
+   the devices, bitwise a flat ``replay`` of the same bank (host ms a
+   poll for the sampler, registry and assembler, 10c); the card's own
+   nvidia-smi at ``-lms 1`` for ~3 s under an ``fma_chain`` square wave,
+   replayed by ``python -m repro_torch.collect`` on the card (a
+   subprocess, and in process to count its launches) and on the CPU,
+   which must agree (10d).
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -242,6 +260,27 @@ RES_CRASH_AT = 6
 RES_GROW_AT_S = 3.0
 RES_GROW_BY = 1000
 RES_CKPT_DIR = os.path.join(ROOT, "build", "chip_ckpt")
+#: phase 10, the monitor's sources on the monitor phase's fleet: 2 s of
+#: flat slabs ([100000, 500] before the faults) through every fault of the
+#: bank at once; the supervisor checkpointing every 2 slabs and crashing
+#: at slab 2; the same replay over 1,000 devices on the card and the CPU;
+#: stream_fleet over the fleet's profiles; the collector polling the bank
+#: 500 times with active store records for 1% of the devices; ~3 s of the
+#: card's own nvidia-smi at -lms 1 under an fma_chain square wave
+SRC_STREAM_S = 2.0
+SRC_SPEC = dict(shuffle=True, dup_fraction=0.05, drop_fraction=0.05,
+                delay_fraction=0.05, clock_drift=1e-5, clock_skew_s=1e-3,
+                restart_every_s=0.7, restart_blackout_s=0.05,
+                corrupt_fraction=1e-4, dropout_fraction=0.01, seed=SEED + 11)
+SRC_CHECKPOINT_EVERY = 2
+SRC_CRASH_AT = 2
+SRC_SMALL = 1000
+SRC_POLLS = 500
+SRC_STORE_SHARE = 0.01
+#: the store's clock: records fitted an hour before it
+SRC_NOW = 1.7e9
+SRC_SMI_S = 3.0
+SRC_DIR = os.path.join(ROOT, "build", "chip_sources")
 #: 7d: estimate_update_period's sensor classes and their periods
 #: (tests/test_microbench.py::test_update_period_catalog)
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
@@ -414,13 +453,13 @@ def fleet(dev, n):
     return names, tl, shifts, bank
 
 
-def monitor(dev, names, shifts):
+def monitor(dev, names, shifts, **kw):
     from repro_torch.core.stream import (MonitorService, StreamCorrections,
                                          default_calibrations)
     mon = MonitorService(
         len(names), device=dev, labels=np.array(names, dtype=object),
         corrections=StreamCorrections.from_calibrations(
-            names, default_calibrations(names), device=dev))
+            names, default_calibrations(names), device=dev), **kw)
     mon.set_windows(1.0 + shifts, 9.0 + shifts)
     return mon
 
@@ -464,6 +503,34 @@ def assert_states_match(a, b, label, energy_rtol):
     return worst
 
 
+def states_within_increment(a, b, label):
+    """Two ``convert.monitor_arrays`` dicts of monitors fed the same
+    stream on the card and the CPU: the energies (state and ring) within
+    1e-12 × the stream's Σ|increment|, which is Σ ``energy_j`` + Σ
+    ``energy_corr_j`` for readings that are never negative (the plain
+    version sums a slab-wide prefix, so its rounding scales with the
+    slab, not the device); everything else as ``assert_states_match``.
+    Returns the largest energy difference over that bound's scale."""
+    scale = float(np.abs(b["state.energy_j"]).sum()
+                  + np.abs(b["state.energy_corr_j"]).sum())
+    energy = {"energy_j", "energy_corr_j", "win_j", "win_corr_j", "e_raw",
+              "e_corr"}
+    worst, bad = 0.0, []
+    for key in sorted(a):
+        x, y = a[key], b[key]
+        if key.split(".")[1] in energy:
+            d = float(np.max(np.abs(x - y), initial=0.0)) / scale
+            worst = max(worst, d)
+            if not d <= 1e-12:
+                bad.append(f"{key} {d:.3e}")
+    check(not bad, f"{label}: beyond 1e-12 x the stream's sum of |increment| "
+          f"({scale:.6e} J): {bad}")
+    rest = [k for k in a if k.split(".")[1] not in energy]
+    assert_states_match({k: a[k] for k in rest}, {k: b[k] for k in rest},
+                        label, 1e-12)
+    return worst, scale
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on "
@@ -492,7 +559,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
 
-    results = run(dev, N_DEVICES, STREAM_S, FLAT_S)
+    results, fma_10d = run(dev, N_DEVICES, STREAM_S, FLAT_S)
     torch.cuda.empty_cache()
     results.append(audit(dev))
     torch.cuda.empty_cache()
@@ -501,6 +568,7 @@ def main() -> int:
     results.append(step)
     torch.cuda.empty_cache()
     fma, lf_7d, step_7e = paper_load(dev)
+    fma.update(fma_10d)
     results[-2].update(lf_7d)
     results[-1].update(step_7e)
     results.append(fma)
@@ -643,6 +711,8 @@ def run(dev, n_devices, stream_s, flat_s):
                       chunk_devices=n_devices, grid=True, progress=progress)
     torch.cuda.synchronize()
     grid_secs = time.perf_counter() - t0
+    injected = counters.pop("injected")
+    check(not any(injected.values()), f"clean replay injected {injected}")
     results["stream_ingest_grid"]["launches"] = stream_ingest_grid.launches
     check(stream_ingest_grid.launches > 0, "grid path ran no grid kernel")
     check(stream_ingest.launches == 0, "clean grid stream fell back")
@@ -785,7 +855,11 @@ def run(dev, n_devices, stream_s, flat_s):
 
     torch.cuda.empty_cache()
     resilient(dev, names, shifts, bank)
-    return list(results.values())
+    torch.cuda.empty_cache()
+    added = sources(dev, names, shifts, bank)
+    for name in ("stream_ingest", "stream_ingest_grid"):
+        results[name].update(added[name])
+    return list(results.values()), added["fma_chain"]
 
 
 # ---------------------------------------------------------------------------
@@ -1196,6 +1270,479 @@ def resilient(dev, names, shifts, bank):
     check(stream_ingest_grid.launches > 0, "9: no grid kernel launch")
     del mon, grown, upfront, slabs
     shutil.rmtree(RES_CKPT_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the monitor's sources
+# ---------------------------------------------------------------------------
+def timed_method(obj, name, times):
+    """Wrap ``obj.name`` so that each call appends its milliseconds,
+    between two device syncs, to ``times``."""
+    raw = getattr(obj, name)
+
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = raw(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(obj, name, call)
+
+
+def ms_stats(times):
+    return (f"median {float(np.median(times)):.3f} (min {min(times):.3f}, "
+            f"max {max(times):.3f})")
+
+
+def faulted_slabs(bank, n, injector_cls, spec):
+    """The supervisor's slab source: a fresh injector each call over the
+    monitor phase's flat slabs, the held tail as one more slab."""
+    def source():
+        inj = injector_cls(spec, n, 0.0, SRC_STREAM_S, device=bank.device)
+        seq = -1
+        for seq, (d, t, v) in enumerate(bank.iter_poll_slabs(
+                0.0, SRC_STREAM_S, PERIOD_S, TICK_S, chunk_devices=n)):
+            d, t, v = inj.apply(seq, d, t, v)
+            if d.numel():
+                yield seq, d, t, v
+        held = inj.flush()
+        if held[0].numel():
+            yield (seq + 1, *held)
+    return source
+
+
+def sources(dev, names, shifts, bank):
+    """Phase 10: the fault bank, ``stream_fleet``, the collector and the
+    card's own nvidia-smi log through ``python -m repro_torch.collect``;
+    returns what it adds to the stream_ingest, stream_ingest_grid and
+    fma_chain records."""
+    import contextlib
+    import dataclasses
+    import importlib
+    import io
+    from repro_torch import convert
+    from repro_torch.collect import CollectorPipeline, SimulatedSampler, cli
+    from repro_torch.collect import wire
+    from repro_torch.core import profiles
+    from repro_torch.core.calibrate import nominal_record
+    from repro_torch.core.calibrate_store import ArtifactStore
+    from repro_torch.core.fleet_engine import fleet_audit
+    from repro_torch.core.stream import (FaultSpec, MonitorService,
+                                         MonitorSupervisor,
+                                         StreamCorrections, replay,
+                                         stream_fleet)
+    from repro_torch.kernels.fma_chain import fma_chain
+    from repro_torch.kernels.stream_ingest import stream_ingest
+    from repro_torch.kernels.stream_ingest_grid import stream_ingest_grid
+    replay_mod = importlib.import_module("repro_torch.core.stream.replay")
+
+    shutil.rmtree(SRC_DIR, ignore_errors=True)
+    os.makedirs(SRC_DIR)
+    n = len(names)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    spec = FaultSpec(**SRC_SPEC)
+    out = {"stream_ingest": {}, "stream_ingest_grid": {}, "fma_chain": {}}
+
+    # -- 10a. every fault at once at full width ------------------------------
+    injectors, inj_ms = [], []
+    injector_cls = replay_mod.FaultInjector
+
+    class Logged(injector_cls):
+        """The port's injector, kept and timed."""
+        n_flushed = 0
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            injectors.append(self)
+
+        def apply(self, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slab = super().apply(*a)
+            torch.cuda.synchronize()
+            inj_ms.append((time.perf_counter() - t0) * 1e3)
+            return slab
+
+        def flush(self):
+            held = super().flush()
+            self.n_flushed = int(held[0].numel())
+            return held
+
+    replay_mod.FaultInjector = Logged
+    try:
+        runs = []
+        for run_no in (1, 2):
+            mon = monitor(dev, names, shifts, strict_ids=False)
+            ing_ms = []
+            timed_method(mon, "ingest", ing_ms)
+            n_inj = len(inj_ms)
+            stream_ingest.launches = 0
+            stream_ingest_grid.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = replay(bank, mon, 0.0, SRC_STREAM_S, PERIOD_S, TICK_S,
+                         chunk_devices=n, faults=spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(stream_ingest.launches > 0 and
+                  stream_ingest_grid.launches == 0,
+                  f"10a: launches flat {stream_ingest.launches}, grid "
+                  f"{stream_ingest_grid.launches}")
+            runs.append(dict(mon=mon, rep=rep, inj=injectors[-1],
+                             inj_ms=inj_ms[n_inj:], ing_ms=ing_ms,
+                             wall=wall, launches=stream_ingest.launches))
+            log(f"10a run {run_no}: {len(ing_ms)} slabs in {wall:.2f} s; "
+                f"ms a slab: injection {ms_stats(inj_ms[n_inj:])}, ingest "
+                f"{ms_stats(ing_ms)}; {stream_ingest.launches} "
+                f"stream_ingest launches")
+        first, second = runs
+        inj = first["inj"]
+        c = inj.log.counts
+        k = first["mon"].counters
+        n_in = sum(r["in"] for r in inj.log.slabs)
+        n_out = sum(r["out"] for r in inj.log.slabs) + inj.n_flushed
+        corrupt = c["corrupt_value"] + c["corrupt_id"] + c["corrupt_time"]
+        check(n_in == n * int(round(SRC_STREAM_S / PERIOD_S)),
+              f"10a: {n_in} samples went into the injector")
+        check(all(v > 0 for v in c.values()), f"10a: a fault never fired: {c}")
+        check(first["rep"]["injected"] == c, "10a: injected counts differ "
+              "from the injector's log")
+        check(n_out == n_in - c["dropped_out"] - c["blacked_out"]
+              - c["dropped"] + c["duplicated"],
+              f"10a: {n_out} samples out of the injector, its log implies "
+              f"otherwise ({c})")
+        check(k["accepted"] + k["duplicates"] + k["late"] + k["invalid"]
+              + k["rejected"] == n_out,
+              f"10a: the monitor's counters {k} do not add up to the "
+              f"{n_out} samples emitted")
+        check(c["corrupt_id"] <= k["rejected"]
+              and c["corrupt_value"] + c["corrupt_time"] <= k["invalid"]
+              and k["rejected"] + k["invalid"] <= corrupt + c["duplicated"],
+              f"10a: rejected/invalid {k} against corrupt {c}")
+        check(k["devices_reporting"] == n, "10a: a device never reported")
+        log(f"10a: {n_in} samples in, {n_out} out ({inj.n_flushed} flushed "
+            f"at the end); injected {c}; restarts at "
+            f"{[round(float(r), 4) for r in inj.log.restarts]}; "
+            f"{int(np.isfinite(inj.log.dropout_t).sum())} devices die; "
+            f"monitor {k}: every identity holds")
+        # a second replay with the same spec, bitwise the first
+        check(second["rep"] == first["rep"], "10a: the replays count "
+              "differently")
+        check(second["inj"].log.slabs == inj.log.slabs,
+              "10a: the two injection logs differ")
+        arrays_equal(convert.monitor_arrays(second["mon"]),
+                     convert.monitor_arrays(first["mon"]),
+                     "10a second replay", skip_moments=True)
+        log("10a: a second replay with the same spec is bitwise the first "
+            "(the label moments aside: they add in no fixed order on the "
+            "card)")
+        want = convert.monitor_arrays(first["mon"])
+        want_counters = k
+        del second, runs
+
+        # the supervisor through one crash, fed by the port's injector
+        crashed = {"left": 1}
+        source = faulted_slabs(bank, n, injector_cls, spec)
+
+        def crashing():
+            for seq, d, t, v in source():
+                if crashed["left"] and seq == SRC_CRASH_AT:
+                    crashed["left"] = 0
+                    raise RuntimeError("collector died")
+                yield seq, d, t, v
+
+        sup = MonitorSupervisor(
+            lambda: monitor(dev, names, shifts, strict_ids=False),
+            os.path.join(SRC_DIR, "supervised"),
+            checkpoint_every=SRC_CHECKPOINT_EVERY, device=dev)
+        t0 = time.perf_counter()
+        report = sup.run(crashing)
+        torch.cuda.synchronize()
+        sup_s = time.perf_counter() - t0
+        check(report.n_crashes == 1 and report.n_restores == 1,
+              f"10a supervisor: {report}")
+        check(sup.monitor.counters == want_counters,
+              "10a: the supervised monitor counts differently")
+        arrays_equal(convert.monitor_arrays(sup.monitor), want,
+                     "10a supervised", skip_moments=True)
+        log(f"10a supervisor, checkpoint every {SRC_CHECKPOINT_EVERY} "
+            f"slabs, crash at slab {SRC_CRASH_AT}: {report.n_slabs} slabs "
+            f"folded, {report.n_skipped} skipped, {report.n_checkpoints} "
+            f"checkpoints; {sup_s:.2f} s; bitwise the uninterrupted replay")
+        del sup, want
+        out["stream_ingest"].update(
+            launches_10a=first["launches"],
+            ms_10a={"inject": float(np.median(first["inj_ms"])),
+                    "ingest": float(np.median(first["ing_ms"]))})
+        del first
+        torch.cuda.empty_cache()
+
+        # 1,000 devices, the card against the CPU
+        names_s, _, shifts_s, bank_s = fleet(dev, SRC_SMALL)
+        small = []
+        for d in (dev, cpu):
+            m = monitor(d, names_s, shifts_s, strict_ids=False)
+            rep = replay(bank_s, m, 0.0, SRC_STREAM_S, PERIOD_S, TICK_S,
+                         faults=spec)
+            small.append((rep, convert.monitor_arrays(m)))
+        (rep_card, on_card), (rep_cpu, on_cpu) = small
+        check(rep_card == rep_cpu,
+              "10a: 1,000 devices count differently on the card and CPU")
+        worst, scale = states_within_increment(
+            on_card, on_cpu, "10a 1,000 devices card vs CPU")
+        log(f"10a: {SRC_SMALL} devices faulted on the card and the CPU: "
+            f"counters and injections equal ({rep_cpu}); energies within "
+            f"{worst:.3e} x the stream's sum of |increment| ({scale:.6e} J)")
+        del small, bank_s
+    finally:
+        replay_mod.FaultInjector = injector_cls
+    torch.cuda.empty_cache()
+
+    # -- 10b. stream_fleet over the fleet's profiles ---------------------------
+    stream_ingest.launches = 0
+    stream_ingest_grid.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = stream_fleet(n, profile=names, seed=SEED, compare=True,
+                       device=dev)
+    torch.cuda.synchronize()
+    sf_s = time.perf_counter() - t0
+    grid_10b = stream_ingest_grid.launches
+    check(grid_10b > 0 and stream_ingest.launches == 0,
+          f"10b: launches grid {grid_10b}, flat {stream_ingest.launches}")
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+    r_naive = rel(res.naive_stream_j, res.naive_offline_j)
+    r_corr = rel(res.corrected_stream_j, res.corrected_offline_j)
+    check(r_naive <= 1e-11 and r_corr <= 1e-11,
+          f"10b: stream vs offline {r_naive:.3e} / {r_corr:.3e}")
+    moved = float((res.corrected_stream_j - res.naive_stream_j).abs().max())
+    check(moved > 1e-3, f"10b: the corrections moved nothing ({moved})")
+    audit = fleet_audit(n, names, seed=SEED, device=dev)
+    r_audit = rel(res.naive_stream_j, audit.naive_j)
+    check(r_audit <= 1e-11, f"10b: stream vs fleet_audit {r_audit:.3e}")
+    log(f"10b stream_fleet: {n} devices ({res.n_samples} samples) in "
+        f"{sf_s:.2f} s with the offline integrals "
+        f"({res.n_samples / sf_s / 1e6:.1f} M samples/s), {grid_10b} "
+        f"stream_ingest_grid launches; largest relative difference from "
+        f"integrate_polled {r_naive:.3e} naive, {r_corr:.3e} corrected, "
+        f"from fleet_audit's naive_j {r_audit:.3e}; the corrections move "
+        f"a window by up to {moved:.4f} J")
+    out["stream_ingest_grid"].update(launches_10b=grid_10b,
+                                     s_10b=sf_s)
+    del res, audit
+    torch.cuda.empty_cache()
+
+    # -- 10c. the collector at full width ---------------------------------------
+    sampler = SimulatedSampler(bank, t0=0.0, period_s=PERIOD_S)
+    store = ArtifactStore(os.path.join(SRC_DIR, "store"))
+    gen = np.random.default_rng(SEED + 13)
+    with_rec = np.sort(gen.choice(n, int(n * SRC_STORE_SHARE),
+                                  replace=False))
+    # what resolve_corrections must give: the record's correction where
+    # one is active, identity ("uncalibrated") elsewhere
+    want = {"gain": np.ones(n), "offset_w": np.zeros(n),
+            "time_shift_s": np.zeros(n), "baseline_w": np.zeros(n),
+            "ref_period_s": np.full(n, 0.1),
+            "calibrated": np.zeros(n, dtype=bool)}
+    labels = np.full(n, "uncalibrated", dtype=object)
+    t0 = time.perf_counter()
+    for i in with_rec:
+        rec = dataclasses.replace(
+            nominal_record(str(sampler.uuids[i]), profiles.get(names[i])),
+            gain=float(1.0 + gen.uniform(-0.05, 0.05)),
+            offset_w=float(gen.uniform(-5.0, 5.0)),
+            fitted_at=SRC_NOW - 3600.0)
+        store.save(rec, activate=True)
+        for key, value in (("gain", rec.correction_gain),
+                           ("offset_w", rec.correction_offset_w),
+                           ("time_shift_s", rec.time_shift_s),
+                           ("ref_period_s", rec.update_period_s),
+                           ("calibrated", True)):
+            want[key][i] = value
+        labels[i] = rec.profile_name
+    save_s = time.perf_counter() - t0
+    corr = StreamCorrections(**{k: torch.as_tensor(v, device=dev)
+                                for k, v in want.items()})
+    pipe = CollectorPipeline(store=store, device=dev,
+                             slab_samples=SRC_POLLS * n, now=SRC_NOW)
+    reg_ms, feed_ms, sample_ms, resolve_ms = [], [], [], []
+    timed_method(pipe.registry, "resolve", reg_ms)
+    timed_method(pipe, "_resolve", resolve_ms)
+    stream_ingest.launches = 0
+    t_c = time.perf_counter()
+    for _ in range(SRC_POLLS):
+        t0 = time.perf_counter()
+        batch = sampler.sample()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        pipe.feed(batch)
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+    mon_c = pipe.finish()
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t_c
+    launches_10c = stream_ingest.launches
+    check(launches_10c > 0, "10c: the collector ran no stream_ingest")
+    check(pipe.assembler.n_slabs == 1 and mon_c.n_devices == n
+          and pipe.n_active_records == with_rec.size,
+          f"10c: {pipe.summary()}")
+    for f in dataclasses.fields(corr):
+        check(torch.equal(getattr(mon_c.corrections, f.name),
+                          getattr(corr, f.name)),
+              f"10c: the pipeline's resolved {f.name} differ from the "
+              f"store's records")
+    check(np.array_equal(mon_c.labels, labels), "10c: resolved labels")
+    ref_c = MonitorService(n, corrections=corr, labels=labels,
+                           strict_ids=False, device=dev)
+    replay(bank, ref_c, 0.0, SRC_POLLS * PERIOD_S, PERIOD_S, TICK_S,
+           chunk_devices=n, grid=False)
+    check(mon_c.counters == ref_c.counters,
+          f"10c: counters {mon_c.counters} vs replay {ref_c.counters}")
+    arrays_equal(convert.monitor_arrays(mon_c), convert.monitor_arrays(ref_c),
+                 "10c collector vs replay", skip_moments=True)
+    assembler_ms = [f - r for f, r in zip(feed_ms[:-1], reg_ms[:-1])]
+    log(f"10c collector: {SRC_POLLS} polls of {n} devices in "
+        f"{collect_s:.2f} s, {launches_10c} stream_ingest launches; host ms "
+        f"a poll: sampler {ms_stats(sample_ms)}, registry "
+        f"{ms_stats(reg_ms)}, assembler besides the registry "
+        f"{ms_stats(assembler_ms)}; the last poll (slab of "
+        f"{SRC_POLLS * n} samples: the monitor built, its corrections "
+        f"resolved, the slab ingested) {feed_ms[-1]:.1f} ms, of which "
+        f"resolve_corrections over {n} uuids {resolve_ms[0]:.1f} ms; "
+        f"{with_rec.size} store records saved in {save_s:.2f} s; the "
+        f"corrections are the records', and the monitor bitwise a flat "
+        f"replay of the same bank (the label moments aside)")
+    out["stream_ingest"].update(
+        launches_10c=launches_10c,
+        ms_10c={"sampler": float(np.median(sample_ms)),
+                "registry": float(np.median(reg_ms)),
+                "assembler": float(np.median(assembler_ms)),
+                "resolve": resolve_ms[0]})
+    del mon_c, ref_c, pipe, sampler
+    torch.cuda.empty_cache()
+
+    # -- 10d. the card's own nvidia-smi log through the collector -------------
+    uuid = subprocess.run(["nvidia-smi", "--query-gpu=uuid",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    power = ("power.draw.instant" if "power.draw.instant" in smi_fields()
+             else "power.draw")
+    profile = "h100_instant" if power == "power.draw.instant" \
+        else "h100_average"
+    path = os.path.join(SRC_DIR, "nvidia_smi_10d.csv")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen_x = torch.Generator(device=dev)
+    gen_x.manual_seed(SEED + 29)
+    x = torch.randn((sms * FMA_BLOCK_ROWS, 128), generator=gen_x, device=dev)
+    niter_ms = time_ms(lambda: fma_chain(x, FMA_NITERS[-1]), 5)
+    niter_10ms = max(1, int(round(FMA_NITERS[-1] * SMI_HALF_S * 1e3
+                                  / niter_ms)))
+    fma_chain.launches = 0
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu=uuid,timestamp,{power},"
+             "utilization.gpu", "--format=csv", "-lms", "1"],
+            stdout=f, stderr=subprocess.PIPE, text=True)
+        try:
+            time.sleep(0.3)
+            t_end = time.time() + SRC_SMI_S
+            while time.time() < t_end:
+                fma_chain(x, niter_10ms)
+                torch.cuda.synchronize()
+                time.sleep(SMI_HALF_S)
+            time.sleep(0.2)
+            rc = proc.poll()
+            err = proc.stderr.read() if rc is not None else ""
+            check(rc is None, f"10d: nvidia-smi exited with {rc}: "
+                  f"{err.strip()}")
+        finally:
+            if proc.poll() is None:
+                proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stderr.close()
+    fma_10d = fma_chain.launches
+    check(fma_10d > 0, "10d: the load ran no fma_chain")
+    args = ["replay", path, "--rebase", "--default-profile", profile]
+    jsons = {k: os.path.join(SRC_DIR, f"replay_{k}.json")
+             for k in ("card", "card_inproc", "cpu")}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.collect", *args, "--json",
+         jsons["card"]], capture_output=True, text=True, env=env,
+        timeout=600, cwd=ROOT)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"10d: python -m repro_torch.collect "
+          f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    stream_ingest.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(args + ["--json", jsons["card_inproc"]]) == 0,
+              "10d: the in-process replay on the card failed")
+        launches_10d = stream_ingest.launches
+        check(cli.main(args + ["--torch-device", "cpu", "--json",
+                               jsons["cpu"]]) == 0,
+              "10d: the replay on the CPU failed")
+    check(launches_10d > 0, "10d: the replay ran no stream_ingest")
+    got = {}
+    for k, p in jsons.items():
+        with open(p) as f:
+            got[k] = json.load(f)
+    card, cpu_j = got["card"], got["cpu"]
+    check(got["card_inproc"] == card, "10d: the subprocess and the "
+          "in-process replay on the card differ")
+    for key in ("wire", "registry", "pipeline"):
+        check(card[key] == cpu_j[key], f"10d: {key} differs card vs CPU: "
+              f"{card[key]} vs {cpu_j[key]}")
+    fe_card, fe_cpu = card["fleet_energy"], cpu_j["fleet_energy"]
+    for key in ("corrected_j", "raw_j"):
+        check(abs(fe_card[key] - fe_cpu[key]) <= 1e-12 * abs(fe_cpu[key]),
+              f"10d: {key} card {fe_card[key]!r} vs CPU {fe_cpu[key]!r}")
+    w = card["wire"]
+    check(w["rows"] == w["samples"] + w["headers"] + w["malformed"]
+          + w["not_available"] + w["error_cells"],
+          f"10d: the wire counters miss rows: {w}")
+    check(w["samples"] >= 100, f"10d: {w['samples']} readings")
+    check(card["registry"]["uuids"] == [uuid],
+          f"10d: registry {card['registry']['uuids']}, card {uuid}")
+    batch, _ = wire.parse_log(path)
+    t, p = batch.t, batch.power_w
+    span = float(t.max() - t.min())
+    same = p[1:] == p[:-1]
+    change = np.flatnonzero(~same) + 1
+    run_s = np.diff(t[change]) if change.size > 1 else np.empty(0)
+    ing = card["pipeline"]["ingest"]
+    log(f"10d the card's own nvidia-smi ({power}, -lms 1, {SRC_SMI_S} s "
+        f"under fma_chain niter {niter_10ms} ~ 10 ms on, 10 ms off): "
+        f"{w['samples']} readings of {w['rows']} rows (wire {w}), span "
+        f"{span:.3f} s, median interval "
+        f"{float(np.median(np.diff(t))) * 1e3:.3f} ms; "
+        f"{float(same.mean()):.1%} of readings repeat the one before, "
+        f"{np.unique(p).size} distinct values, median time between "
+        f"changes {float(np.median(run_s)) * 1e3 if run_s.size else math.nan:.1f}"
+        f" ms; ingest {ing}; raw {fe_card['raw_j']:.3f} J, corrected "
+        f"{fe_card['corrected_j']:.3f} J ({profile}), mean "
+        f"{fe_card['raw_j'] / span:.2f} W; python -m repro_torch.collect "
+        f"on the card {sub_s:.1f} s; card equals the CPU, "
+        f"{launches_10d} stream_ingest launches, {fma_10d} fma_chain")
+    out["stream_ingest"].update(launches_10d=launches_10d)
+    out["fma_chain"].update(launches_10d=fma_10d)
+    out["stream_ingest"]["nvidia_smi_10d"] = dict(
+        power=power, readings=w["samples"], span_s=span,
+        repeat_share=float(same.mean()), distinct=int(np.unique(p).size),
+        raw_j=fe_card["raw_j"], corrected_j=fe_card["corrected_j"],
+        duplicates=ing["duplicates"], late=ing["late"])
+    log(f"10: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(os.path.join(SRC_DIR, "supervised"), ignore_errors=True)
+    shutil.rmtree(os.path.join(SRC_DIR, "store"), ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

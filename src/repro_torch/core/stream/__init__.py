@@ -15,7 +15,11 @@ query serving (the counterpart of :mod:`repro.core.stream`).
   complete generation;
 * :mod:`.supervisor` — :class:`MonitorSupervisor`, the crash-recovery
   loop (auto-checkpoint, restore-then-resume, slab-boundary dedup);
-* :mod:`.replay` — :func:`replay`, a ``SensorBank`` as a live stream.
+* :mod:`.replay` — :func:`replay`, a ``SensorBank`` as a live stream,
+  through the seeded fault bank (:class:`FaultSpec`,
+  :class:`FaultInjector`, :class:`InjectionLog`), and
+  :func:`stream_fleet`, a fleet streamed with ``fleet_audit``'s setup and
+  pinned against the offline integral on the same schedules.
 """
 from repro_torch.core.stream.checkpoint import (CheckpointError,
                                                 MissingCheckpointError,
@@ -28,7 +32,9 @@ from repro_torch.core.stream.health import (HEALTHY, QUARANTINED, STALE,
                                             HealthPolicy, HealthTracker)
 from repro_torch.core.stream.ingest import IngestCore, IngestReport
 from repro_torch.core.stream.monitor import MonitorService
-from repro_torch.core.stream.replay import replay
+from repro_torch.core.stream.replay import (FaultInjector, FaultSpec,
+                                            InjectionLog, StreamFleetResult,
+                                            replay, stream_fleet)
 from repro_torch.core.stream.schema import SCHEMA_VERSION, SchemaError
 from repro_torch.core.stream.snapshot import FleetEnergy, MonitorSnapshot
 from repro_torch.core.stream.state import DeviceState, IngestBuffer
@@ -43,4 +49,6 @@ __all__ = ["DeviceState", "IngestBuffer",
            "HEALTHY", "STALE", "QUARANTINED", "HealthPolicy",
            "HealthTracker", "CheckpointError", "MissingCheckpointError",
            "save_monitor", "restore_monitor",
-           "MonitorSupervisor", "SupervisorReport", "replay"]
+           "MonitorSupervisor", "SupervisorReport",
+           "FaultSpec", "FaultInjector", "InjectionLog",
+           "StreamFleetResult", "replay", "stream_fleet"]

@@ -7,8 +7,11 @@ not import under jax 0.9).  Health codes, flags, counters and health
 summaries must equal the reference's bitwise; energies, coverage and
 widened sigmas to rtol 1e-12.  Port-to-port comparisons (grow against
 up-front construction, supervised recovery against an uninterrupted run)
-are bitwise throughout.  The reference's ``FaultInjector`` makes the
-faulted slab sources (numpy, in the tests only).
+are bitwise throughout.  Each package's monitor takes the faulted
+stream of its own ``FaultInjector`` (the port's on tensors, the
+reference's on numpy arrays) from the same input slabs;
+``test_both_injectors_emit_the_same_slabs`` holds the two streams
+bitwise.
 """
 import dataclasses
 
@@ -21,7 +24,8 @@ from test_resilience import (ALL_FAULTS, _crashing,  # noqa: E402
                              _faulty_source, _fingerprint, _slabs, _steady)
 from test_serving import _corr  # noqa: E402
 
-from repro.core.stream import FaultInjector, FaultSpec  # noqa: E402
+from repro.core.stream import FaultInjector as RInjector  # noqa: E402
+from repro.core.stream import FaultSpec as RSpec  # noqa: E402
 from repro.core.stream import HealthPolicy as RPolicy  # noqa: E402
 from repro.core.stream import MonitorService as RMonitor  # noqa: E402
 from repro.core.stream.health import HealthTracker as RTracker  # noqa: E402
@@ -30,9 +34,9 @@ from repro.serve.monitor_service import (  # noqa: E402
     MonitorQuery as RQuery, MonitorQueryService as RService)
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.stream import (QUARANTINED, STALE,  # noqa: E402
-                                     HealthPolicy, HealthTracker,
-                                     MonitorService, MonitorSupervisor,
-                                     StreamCorrections)
+                                     FaultInjector, FaultSpec, HealthPolicy,
+                                     HealthTracker, MonitorService,
+                                     MonitorSupervisor, StreamCorrections)
 from repro_torch.core.stream.state import DeviceState  # noqa: E402
 from repro_torch.serve.monitor_service import (  # noqa: E402
     MonitorQuery, MonitorQueryService)
@@ -394,7 +398,8 @@ def test_flags_surface_health_states():
 def test_node_failure_fleet_bounded_error_and_honest_coverage():
     n = 8
     spec = FaultSpec(dropout_fraction=0.5, dropout_after=0.4, seed=3)
-    inj = FaultInjector(spec, n, 0.0, 3.0)
+    inj = FaultInjector(spec, n, 0.0, 3.0, device=CPU)
+    r_inj = RInjector(RSpec(**dataclasses.asdict(spec)), n, 0.0, 3.0)
     dead = np.isfinite(inj.log.dropout_t)
     assert 0 < dead.sum() < n
     ref, port = _pair(n, silent_after_s=0.2, health=HealthPolicy(),
@@ -404,9 +409,9 @@ def test_node_failure_fleet_bounded_error_and_honest_coverage():
     for seq in range(8):
         sl = ts_all[(ts_all >= seq * 0.5) & (ts_all < (seq + 1) * 0.5)]
         dev = np.repeat(np.arange(n), sl.size).astype(np.int64)
-        faulted = inj.apply(seq, dev, np.tile(sl, n), powers[dev])
-        for mon in (ref, port):
-            mon.ingest(*faulted)
+        slab = (dev, np.tile(sl, n), powers[dev])
+        port.ingest(*inj.apply(seq, *slab))
+        ref.ingest(*r_inj.apply(seq, *slab))
         assert_same_health(ref, port, f"slab {seq}")
     for mon in (ref, port):
         mon.update_health(4.1)
@@ -608,21 +613,62 @@ def _ref_sup_monitor(n):
     return mon
 
 
-def _uninterrupted(source, n):
+def _port_faulty_source(spec, slabs, n, t0, t1, device=CPU):
+    """``test_resilience._faulty_source`` through the port's injector: a
+    fresh ``FaultInjector`` each call, so every (re)play emits the same
+    faulted stream, as tensors on ``device``."""
+    spec = FaultSpec(**dataclasses.asdict(spec))
+
+    def source():
+        inj = FaultInjector(spec, n, t0, t1, device=device)
+        for seq, (dev, ts, vs) in enumerate(slabs):
+            dev, ts, vs = inj.apply(seq, dev, ts, vs)
+            if dev.numel():
+                yield seq, dev, ts, vs
+    return source
+
+
+def _sources(spec, slabs, n, t0, t1):
+    """The port's faulted source and the reference's, over the same
+    input slabs."""
+    return (_port_faulty_source(spec, slabs, n, t0, t1),
+            _faulty_source(spec, slabs, n, t0, t1))
+
+
+def _uninterrupted(sources, n):
+    """Each package's monitor over its own injector's stream."""
+    port_source, ref_source = sources
     port, ref = _sup_factory(n)(), _ref_sup_monitor(n)
-    for _, dev, ts, vs in source():
+    for _, dev, ts, vs in port_source():
         port.ingest(dev, ts, vs)
+    for _, dev, ts, vs in ref_source():
         ref.ingest(dev, ts, vs)
     return port, ref
+
+
+def test_both_injectors_emit_the_same_slabs():
+    """The port's faulted source is bitwise the reference's: the same
+    sequence numbers, ids, times (NaN where corrupt) and readings."""
+    n, n_slabs = 6, 12
+    port_source, ref_source = _sources(
+        ALL_FAULTS, _slabs(n, n_slabs=n_slabs, seed=3), n, 0.0,
+        0.5 * n_slabs)
+    got, want = list(port_source()), list(ref_source())
+    assert [g[0] for g in got] == [w[0] for w in want]
+    for g, w in zip(got, want):
+        for a, b in zip(g[1:], w[1:]):
+            assert _np(a).dtype == b.dtype
+            np.testing.assert_array_equal(_np(a), b)
 
 
 @pytest.mark.parametrize("asynchronous", [False, True])
 @pytest.mark.parametrize("fail_at", [1, 4, 9])
 def test_supervisor_recovery_is_bitwise(tmp_path, fail_at, asynchronous):
     n, n_slabs = 6, 12
-    source = _faulty_source(ALL_FAULTS, _slabs(n, n_slabs=n_slabs, seed=3),
-                            n, 0.0, 0.5 * n_slabs)
-    port, ref = _uninterrupted(source, n)
+    sources = _sources(ALL_FAULTS, _slabs(n, n_slabs=n_slabs, seed=3),
+                       n, 0.0, 0.5 * n_slabs)
+    source = sources[0]
+    port, ref = _uninterrupted(sources, n)
     sup = MonitorSupervisor(_sup_factory(n), str(tmp_path / "ck"),
                             checkpoint_every=3, asynchronous=asynchronous,
                             device=CPU)
@@ -638,9 +684,10 @@ def test_supervisor_recovery_is_bitwise(tmp_path, fail_at, asynchronous):
 
 def test_supervisor_survives_repeated_crashes(tmp_path):
     n, n_slabs = 5, 10
-    source = _faulty_source(ALL_FAULTS, _slabs(n, n_slabs=n_slabs, seed=6),
-                            n, 0.0, 5.0)
-    port, _ = _uninterrupted(source, n)
+    sources = _sources(ALL_FAULTS, _slabs(n, n_slabs=n_slabs, seed=6),
+                       n, 0.0, 5.0)
+    source = sources[0]
+    port, _ = _uninterrupted(sources, n)
     sup = MonitorSupervisor(_sup_factory(n), str(tmp_path / "ck"),
                             checkpoint_every=2, device=CPU)
     report = sup.run(_crashing(source, 6, n_fails=3))
@@ -650,9 +697,10 @@ def test_supervisor_survives_repeated_crashes(tmp_path):
 
 def test_supervisor_resumes_across_instances(tmp_path):
     n, n_slabs = 5, 10
-    source = _faulty_source(ALL_FAULTS, _slabs(n, n_slabs=n_slabs, seed=4),
-                            n, 0.0, 5.0)
-    port, _ = _uninterrupted(source, n)
+    sources = _sources(ALL_FAULTS, _slabs(n, n_slabs=n_slabs, seed=4),
+                       n, 0.0, 5.0)
+    source = sources[0]
+    port, _ = _uninterrupted(sources, n)
 
     def truncated():
         for i, slab in enumerate(source()):
