@@ -120,7 +120,25 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    nvidia-smi at ``-lms 1`` for ~3 s under an ``fma_chain`` square wave,
    replayed by ``python -m repro_torch.collect`` on the card (a
    subprocess, and in process to count its launches) and on the CPU,
-   which must agree (10d).
+   which must agree (10d);
+11. the mixed fleet at ``benchmarks/fleet.py``'s sizes, after phase 8:
+   ``FleetScenarioSpec(1_000_000, seed=7)`` synthesised on the card in
+   100,000-device slabs, every row's segment count, edges and window
+   held to its kind's, the labels to the largest-remainder counts, and
+   10,000 devices of each mix on the card and the CPU, which must agree
+   (bitwise, or within 1e-15 for the kinds with a sin, pow or exp;
+   11a); ``fleet_audit`` over the million devices (fleet.py's profile
+   mix, naive and §5, prefetch), its streamed moments against the exact
+   ones, its first 200,000 rows again with and without prefetch, bitwise,
+   and 100,000 devices chunked against unchunked (11b); 100,000 devices
+   of ``ADVERSARIAL_MIX`` on phase 5's kinds, §5 beating naive, with
+   ``log_filter`` held against its plain version at the largest shape it
+   was given (11c); ``stream_fleet`` over a 100,000-device spec at 10 ms
+   polls against the offline integrals, with ``stream_ingest_grid`` held
+   against its plain version at the stream's largest slab (11d); a
+   ``FleetLedger`` of 11b's §5 energies and 11d's monitor, its labels
+   summing to its total, and 2,000 devices of it on the card and the CPU
+   (11e).  The phase logs its wall, and the script its own.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -281,6 +299,36 @@ SRC_STORE_SHARE = 0.01
 SRC_NOW = 1.7e9
 SRC_SMI_S = 3.0
 SRC_DIR = os.path.join(ROOT, "build", "chip_sources")
+#: phase 11, the mixed fleet at benchmarks/fleet.py's sizes: its
+#: --mega-devices 1000000 audit in MEGA_CHUNK = 100,000-device slabs and
+#: its --stream-devices 100000 replay (period 0.01 s, 25,000-device
+#: chunks), on FleetScenarioSpec(n, seed=7)
+MIX_SEED = 7
+MIX_DEVICES = 1_000_000
+MIX_CHUNK = 100_000
+#: the first rows of the million-device audit run again without prefetch
+MIX_HEAD = 200_000
+#: card vs CPU and the object path
+MIX_SMALL = 10_000
+#: chunked (25,000) against unchunked
+MIX_CHUNKED = 100_000
+MIX_CHUNKED_SLAB = 25_000
+MIX_STREAM = 100_000
+MIX_STREAM_CHUNK = 25_000
+MIX_STREAM_PERIOD_S = 0.01
+MIX_LEDGER = 2_000
+#: each scenario's segment counts and window (None: training's duration,
+#: compute plus collective, varies by design within 0.14-0.24 s)
+MIX_SEGMENTS = {"training": (2, 2), "inference": (1, 25), "idle": (3, 3),
+                "diurnal": (6, 6), "dvfs": (8, 8), "throttle": (7, 7),
+                "powercap": (8, 8), "node_failure": (2, 2)}
+MIX_WINDOW_S = {"training": None, "inference": 0.350, "idle": 0.450,
+                "diurnal": 0.300, "dvfs": 0.360, "throttle": 0.420,
+                "powercap": 0.400, "node_failure": 0.400}
+#: kinds whose powers take a sin, pow or exp, which the card and the CPU
+#: may round an ulp apart; the others' banks must be bitwise
+MIX_ULP_KINDS = ("diurnal", "dvfs", "throttle")
+MIX_ULP_RTOL = 1e-15
 #: 7d: estimate_update_period's sensor classes and their periods
 #: (tests/test_microbench.py::test_update_period_catalog)
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
@@ -538,6 +586,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -574,6 +623,14 @@ def main() -> int:
     results.append(fma)
     torch.cuda.empty_cache()
     results.extend(lm_serving(dev))
+    torch.cuda.empty_cache()
+    by_name = {r["name"]: r for r in results}
+    for name, extra in mixed_fleet(dev).items():
+        rec = by_name[name]
+        err = max(v for k, v in extra.items() if k.startswith("max_abs_err"))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec.update(extra)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3311,6 +3368,423 @@ def near(got, want, rel):
     """``got`` within ``rel`` of ``want``, relatively (the reference tests'
     ``pytest.approx(want, rel=rel)``); false for nan."""
     return abs(got - want) <= rel * abs(want)
+
+
+# ---------------------------------------------------------------------------
+# the mixed fleet
+# ---------------------------------------------------------------------------
+def fleet_profile_names(n):
+    """``benchmarks/fleet.py``'s ``_profile_names``: half ``a100``, a
+    quarter ``h100_instant``, the rest ``v100``."""
+    return (["a100"] * (n // 2) + ["h100_instant"] * (n // 4)
+            + ["v100"] * (n - n // 2 - n // 4))
+
+
+def remainder_counts(n, mix):
+    """Devices per kind by largest-remainder apportioning of ``mix``
+    over ``n`` (ties to the kind first in name order)."""
+    kinds = sorted(mix)
+    total = sum(mix.values())
+    exact = [mix[k] / total * n for k in kinds]
+    counts = [math.floor(x) for x in exact]
+    order = sorted(range(len(kinds)), key=lambda i: counts[i] - exact[i])
+    for i in order[:n - sum(counts)]:
+        counts[i] += 1
+    return dict(zip(kinds, counts))
+
+
+def bank_truths(bank, labels, where):
+    """Gate a slab's rows on their kind: segment counts in range, edges
+    from 0 and non-decreasing, the kind's window within 1e-15 relative
+    (training within its 0.14-0.24 s); one host read a kind.  Returns
+    the widest row and the longest duration."""
+    widest, longest = 0, 0.0
+    for kind in np.unique(labels):
+        sel = torch.as_tensor(labels == kind, device=bank.device)
+        e = bank.edges[sel]
+        dur = bank.duration_s[sel]
+        ns = bank.n_segs[sel]
+        ns_lo, ns_hi, e0, step, d_lo, d_hi = torch.stack([
+            ns.min().double(), ns.max().double(), e[:, 0].abs().max(),
+            torch.diff(e, dim=1).min(), dur.min(), dur.max()]).tolist()
+        lo, hi = MIX_SEGMENTS[kind]
+        check(lo <= ns_lo and ns_hi <= hi,
+              f"{where}: {kind} rows of {ns_lo:.0f}-{ns_hi:.0f} segments")
+        check(e0 == 0.0 and step >= 0.0,
+              f"{where}: {kind} edges start at {e0} or step by {step}")
+        w = MIX_WINDOW_S[kind]
+        if w is None:
+            check(0.14 <= d_lo and d_hi <= 0.24,
+                  f"{where}: {kind} durations {d_lo}-{d_hi}")
+        else:
+            check(max(abs(d_lo - w), abs(d_hi - w)) <= MIX_ULP_RTOL * w,
+                  f"{where}: {kind} durations {d_lo}-{d_hi}, not {w}")
+        widest = max(widest, int(ns_hi))
+        longest = max(longest, d_hi)
+    return widest, longest
+
+
+def log_scenarios(res, indent="  "):
+    """Naive and §5 mean |error| per scenario (information)."""
+    naive, gp = res.by_scenario(res.naive_err), res.by_scenario(res.gp_err)
+    for label in sorted(naive):
+        log(f"{indent}{label:12s} n={naive[label]['n_devices']:7d} mean "
+            f"|err| naive {naive[label]['mean_abs_err']:.4%}, §5 "
+            f"{gp[label]['mean_abs_err']:.4%}")
+
+
+def mixed_fleet(dev):
+    """Phase 11; returns what it adds to the log_filter and
+    stream_ingest_grid records."""
+    import dataclasses
+    from repro_torch.core import fleet_engine as fe
+    from repro_torch.core import load as loads
+    from repro_torch.core.stream import ingest as ingest_mod
+    from repro_torch.core.stream import stream_fleet
+    from repro_torch.core.telemetry import FleetLedger, datacenter_projection
+    from repro_torch.engine_backend import torch_backend as tb
+    from repro_torch.kernels import log_filter as k_log
+    from repro_torch.kernels.log_filter import log_filter
+    from repro_torch.kernels.stream_ingest_grid import stream_ingest_grid
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # -- 11a. synthesis: the million-device fleet slab by slab on the card --
+    spec = loads.FleetScenarioSpec(MIX_DEVICES, seed=MIX_SEED)
+    slab_ms, widest, longest, counts = [], 0, 0.0, {}
+    for lo in range(0, MIX_DEVICES, MIX_CHUNK):
+        hi = min(lo + MIX_CHUNK, MIX_DEVICES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ws = spec.workload_set(lo, hi, device=dev)
+        torch.cuda.synchronize()
+        slab_ms.append((time.perf_counter() - t0) * 1e3)
+        check(ws.timeline_bank.device == dev
+              and ws.true_energies_j.device == dev,
+              f"11a: slab [{lo}, {hi}) synthesised on "
+              f"{ws.timeline_bank.device}, not {dev}")
+        w, d = bank_truths(ws.timeline_bank, ws.scenarios,
+                           f"11a [{lo}, {hi})")
+        widest, longest = max(widest, w), max(longest, d)
+        for k, c in zip(*np.unique(ws.scenarios, return_counts=True)):
+            counts[str(k)] = counts.get(str(k), 0) + int(c)
+        del ws
+    want = remainder_counts(MIX_DEVICES, loads.DEFAULT_MIX)
+    check(counts == want, f"11a: labels {counts}, largest remainder {want}")
+    log(f"11a synthesis: {MIX_DEVICES} devices of DEFAULT_MIX in "
+        f"{len(slab_ms)} slabs of {MIX_CHUNK} on the card: median "
+        f"{float(np.median(slab_ms)):.2f} ms a slab (min "
+        f"{min(slab_ms):.2f}, max {max(slab_ms):.2f}, the first "
+        f"{slab_ms[0]:.2f}); widest row {widest} segments, longest "
+        f"{longest:.6f} s; labels {counts} = the largest-remainder counts; "
+        f"every row's segments, edges and window as its kind's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wls = loads.mixed_fleet_workloads(MIX_SMALL, seed=MIX_SEED, device=dev)
+    obj_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ws = loads.mixed_fleet_workloads(MIX_SMALL, seed=MIX_SEED, as_bank=True,
+                                     device=dev)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    check(len(wls) == len(ws) == MIX_SMALL, "11a: object path size")
+    log(f"11a object path (information): mixed_fleet_workloads("
+        f"{MIX_SMALL}) {obj_s:.3f} s for {len(wls)} Workload objects, "
+        f"as_bank=True {bank_s:.3f} s")
+    del wls, ws
+
+    worst = {}
+    for mix_name, mix in (("DEFAULT_MIX", None),
+                          ("ADVERSARIAL_MIX", loads.ADVERSARIAL_MIX)):
+        a, la = loads.mixed_fleet_bank(MIX_SMALL, mix, MIX_SEED, device=dev)
+        b, lb = loads.mixed_fleet_bank(MIX_SMALL, mix, MIX_SEED, device=cpu)
+        check(np.array_equal(la, lb), f"11a: {mix_name} labels card vs CPU")
+        ae, ap, an = a.edges.cpu(), a.powers.cpu(), a.n_segs.cpu()
+        check(ae.shape == b.edges.shape, f"11a: {mix_name} bank widths")
+        for kind in np.unique(la):
+            sel = torch.as_tensor(la == kind)
+            check(torch.equal(an[sel], b.n_segs[sel])
+                  and torch.equal(ae[sel], b.edges[sel]),
+                  f"11a: {kind} segments or edges differ card vs CPU")
+            pa, pb = ap[sel], b.powers[sel]
+            rel = float(((pa - pb).abs() / pb.abs()).max())
+            if kind in MIX_ULP_KINDS:
+                check(rel <= MIX_ULP_RTOL,
+                      f"11a: {kind} powers {rel:.3e} apart card vs CPU")
+            else:
+                check(torch.equal(pa, pb),
+                      f"11a: {kind} powers not bitwise card vs CPU "
+                      f"({rel:.3e})")
+            worst[str(kind)] = rel
+    log(f"11a card vs CPU, {MIX_SMALL} devices of each mix: labels, "
+        f"segments and edges bitwise; powers bitwise for "
+        f"{sorted(k for k in worst if k not in MIX_ULP_KINDS)}, within "
+        f"{MIX_ULP_RTOL} for {list(MIX_ULP_KINDS)}; largest relative "
+        f"difference by kind {worst}")
+
+    # -- 11b. the million-device audit ---------------------------------------
+    names = fleet_profile_names(MIX_DEVICES)
+    k_log.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fe.fleet_audit(MIX_DEVICES, names, workload=spec, seed=MIX_SEED,
+                         good_practice=True, n_trials=AUDIT_TRIALS,
+                         chunk_devices=MIX_CHUNK, prefetch_workloads=True,
+                         device=dev)
+    torch.cuda.synchronize()
+    mega_s = time.perf_counter() - t0
+    for e in (res.naive_j, res.gp_j, res.naive_err, res.gp_err):
+        check(e.shape == (MIX_DEVICES,) and bool(torch.isfinite(e).all()),
+              "11b: audit result malformed")
+    log(f"11b fleet_audit: {MIX_DEVICES} devices (half a100, a quarter "
+        f"h100_instant, a quarter v100), DEFAULT_MIX, naive + §5 "
+        f"({AUDIT_TRIALS} trials), {MIX_CHUNK}-device slabs synthesised "
+        f"with prefetch, in {mega_s:.3f} s ({MIX_DEVICES / mega_s:.1f} "
+        f"devices/s); log_filter launches {log_filter.launches}")
+    log_scenarios(res)
+    for key, errs in (("naive", res.naive_err), ("good_practice",
+                                                 res.gp_err)):
+        exact = dict(res.by_scenario(errs), overall=res.stats(errs))
+        exact["overall"]["n_devices"] = MIX_DEVICES
+        streamed = dict(res.streamed[key]["by_scenario"],
+                        overall=res.streamed[key]["overall"])
+        check(sorted(exact) == sorted(streamed), f"11b: {key} groups")
+        for label, st in exact.items():
+            sm = streamed[label]
+            check(sm["n_devices"] == st["n_devices"],
+                  f"11b: {key} {label} moment count")
+            for k in ("mean_err", "mean_abs_err", "std_err", "worst_abs"):
+                check(abs(sm[k] - st[k]) <= 1e-9 * abs(st[k]) + 1e-15,
+                      f"11b: {key} {label} streamed {k} {sm[k]} vs exact "
+                      f"{st[k]}")
+        log(f"  {key}: mean err {exact['overall']['mean_err']:+.4%}, mean "
+            f"|err| {exact['overall']['mean_abs_err']:.4%}, p99 |err| "
+            f"{exact['overall']['p99_abs']:.4%}; streamed moments, overall "
+            f"and by scenario, match stats()/by_scenario within 1e-9 "
+            f"relative")
+
+    @dataclasses.dataclass(frozen=True)
+    class Head(loads.FleetScenarioSpec):
+        """The first ``n`` devices of the ``of``-device fleet."""
+        of: int = MIX_DEVICES
+
+        def bank(self, lo=0, hi=None, *, device="cuda"):
+            return loads.mixed_fleet_bank(
+                self.of, mix=self.mix, seed=self.seed, idle_w=self.idle_w,
+                peak_w=self.peak_w, lo=lo, hi=self.n if hi is None else hi,
+                device=device)
+
+    whole_fleet = fe._fleet_bank(names, MIX_SEED, dev)
+    fleet_bank = fe._fleet_bank
+    fe._fleet_bank = lambda nm, seed, device: whole_fleet.subset(
+        np.arange(len(nm)))
+    head_s = {}
+    try:
+        for prefetch in (False, True):
+            t0 = time.perf_counter()
+            head = fe.fleet_audit(
+                MIX_HEAD, names[:MIX_HEAD],
+                workload=Head(MIX_HEAD, seed=MIX_SEED), seed=MIX_SEED,
+                good_practice=True, n_trials=AUDIT_TRIALS,
+                chunk_devices=MIX_CHUNK, prefetch_workloads=prefetch,
+                device=dev)
+            torch.cuda.synchronize()
+            head_s[prefetch] = time.perf_counter() - t0
+            check(np.array_equal(head.scenarios, res.scenarios[:MIX_HEAD]),
+                  "11b: the head's labels")
+            for key in ("naive_j", "gp_j", "naive_err", "gp_err"):
+                check(torch.equal(getattr(head, key),
+                                  getattr(res, key)[:MIX_HEAD]),
+                      f"11b: {key} (prefetch {prefetch}) differs from the "
+                      f"million-device run's rows")
+    finally:
+        fe._fleet_bank = fleet_bank
+    del whole_fleet, head
+    log(f"11b the first {MIX_HEAD} devices again: without prefetch "
+        f"{head_s[False]:.3f} s, with {head_s[True]:.3f} s (prefetch "
+        f"saves {head_s[False] - head_s[True]:+.3f} s); both bitwise the "
+        f"million-device run's rows")
+
+    spec_c = loads.FleetScenarioSpec(MIX_CHUNKED, seed=MIX_SEED)
+    names_c = fleet_profile_names(MIX_CHUNKED)
+    runs = [fe.fleet_audit(MIX_CHUNKED, names_c, workload=spec_c,
+                           seed=MIX_SEED, good_practice=True,
+                           n_trials=AUDIT_TRIALS, chunk_devices=chunk,
+                           device=dev)
+            for chunk in (None, MIX_CHUNKED_SLAB)]
+    chunk_rel = 0.0
+    for key in ("naive_j", "gp_j"):
+        a, b = getattr(runs[1], key), getattr(runs[0], key)
+        rel = float(((a - b).abs() / b.abs()).max())
+        check(rel <= 1e-12, f"11b: {key} chunked vs unchunked {rel:.3e}")
+        chunk_rel = max(chunk_rel, rel)
+    log(f"11b chunked ({MIX_CHUNKED_SLAB}) vs unchunked, {MIX_CHUNKED} "
+        f"devices: largest relative difference {chunk_rel:.3e} (bar 1e-12)")
+    del runs
+
+    # -- 11c. the adversarial fleet on phase 5's profiles --------------------
+    names_a = audit_fleet()
+    spec_a = loads.FleetScenarioSpec(AUDIT_DEVICES, mix=loads.ADVERSARIAL_MIX,
+                                     seed=MIX_SEED)
+    captured = {}
+
+    def recording(tl, ticks, tau):
+        if ticks.numel() > captured.get("size", 0):
+            captured.update(size=ticks.numel(), args=(tl, ticks, tau))
+        return log_filter(tl, ticks, tau)
+
+    fe.log_filter = recording
+    try:
+        k_log.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adv = fe.fleet_audit(AUDIT_DEVICES, names_a, workload=spec_a,
+                             seed=SEED, good_practice=True,
+                             n_trials=AUDIT_TRIALS, chunk_devices=AUDIT_CHUNK,
+                             device=dev)
+        torch.cuda.synchronize()
+        adv_s = time.perf_counter() - t0
+        lf_launches = log_filter.launches
+        lf_routes = dict(log_filter.launches_by_route)
+    finally:
+        fe.log_filter = log_filter
+    check(lf_launches > 0, "11c: the adversarial audit ran no log_filter")
+    naive_abs = adv.stats()["mean_abs_err"]
+    gp_abs = adv.stats(adv.gp_err)["mean_abs_err"]
+    check(gp_abs < naive_abs,
+          f"11c: §5 {gp_abs:.4%} does not beat naive {naive_abs:.4%}")
+    log(f"11c fleet_audit: {AUDIT_DEVICES} devices of phase 5's kinds, "
+        f"ADVERSARIAL_MIX, naive + §5, {AUDIT_CHUNK}-device slabs, in "
+        f"{adv_s:.3f} s ({AUDIT_DEVICES / adv_s:.1f} devices/s); mean "
+        f"|err| naive {naive_abs:.4%}, §5 {gp_abs:.4%}; {lf_launches} "
+        f"log_filter launches, by route {lf_routes}")
+    log_scenarios(adv)
+    tl, ticks, tau = captured["args"]
+    lf_err = log_filter_err(tl, ticks, tau)
+    lf_ms = time_ms(lambda: log_filter(tl, ticks, tau), 20)
+    lf_plain_ms = time_ms(lambda: tb.log_filter(tl, ticks, tau), 3)
+    g, m = ticks.shape
+    r, s1 = tl.edges.shape
+    s = s1 - 1
+    nbytes = 8 * (2 * g * m + g + r * (2 * s + 2))
+    tick_ops = sass_f64_count("log_filter", "log_filter_tick_ops")
+    step_ops = sass_f64_count("log_filter", "log_filter_step_ops")
+    ops = g * m * (tick_ops + s1.bit_length()) + g * s * step_ops
+    lf_bound = max(nbytes / HBM_BYTES_PER_S, ops / FP64_INSTR_PER_S) * 1e3
+    log(f"11c log_filter at the audit's largest shape [{g}, {m}] ({r} "
+        f"timeline rows, {s} segments; {k_log.plan(r, g, s, m)}): kernel "
+        f"{lf_ms:.4f} ms, plain {lf_plain_ms:.3f} ms, bound "
+        f"{lf_bound:.4f} ms, max_abs_err {lf_err:.3e}")
+    del adv, captured, tl, ticks, tau
+
+    # -- 11d. live: stream_fleet at fleet.py's --stream-devices scale -------
+    names_s = fleet_profile_names(MIX_STREAM)
+    spec_s = loads.FleetScenarioSpec(MIX_STREAM, seed=MIX_SEED)
+    grid_args = {}
+
+    def recording_grid(*args):
+        if args[1].numel() > grid_args.get("size", 0):
+            grid_args.update(size=args[1].numel(), args=args)
+        return stream_ingest_grid(*args)
+
+    ingest_mod.stream_ingest_grid = recording_grid
+    try:
+        stream_ingest_grid.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = stream_fleet(MIX_STREAM, profile=names_s, workload=spec_s,
+                            seed=MIX_SEED, period_s=MIX_STREAM_PERIOD_S,
+                            chunk_devices=MIX_STREAM_CHUNK, compare=True,
+                            device=dev)
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+        grid_launches = stream_ingest_grid.launches
+    finally:
+        ingest_mod.stream_ingest_grid = stream_ingest_grid
+    check(grid_launches > 0, "11d: stream_fleet ran no stream_ingest_grid")
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+    r_naive = rel(live.naive_stream_j, live.naive_offline_j)
+    r_corr = rel(live.corrected_stream_j, live.corrected_offline_j)
+    check(r_naive <= 1e-11 and r_corr <= 1e-11,
+          f"11d: stream vs offline {r_naive:.3e} / {r_corr:.3e}")
+    log(f"11d stream_fleet: {MIX_STREAM} devices of DEFAULT_MIX, period "
+        f"{MIX_STREAM_PERIOD_S} s, {MIX_STREAM_CHUNK}-device chunks, "
+        f"{live.n_samples} samples in {live_s:.3f} s with the offline "
+        f"integrals ({live.n_samples / live_s / 1e6:.2f} M samples/s); "
+        f"{grid_launches} stream_ingest_grid launches; stream vs offline "
+        f"{r_naive:.3e} naive, {r_corr:.3e} corrected (bar 1e-11)")
+    args = list(grid_args["args"][:-1])
+    trap = grid_args["args"][-1]
+    grid_err = compare("stream_ingest_grid", stream_ingest_grid,
+                       tb.stream_ingest_grid, args, trap)
+    outs = stream_ingest_grid(*args, trap)
+    grid_ms = time_ms(lambda: stream_ingest_grid(*args, trap), 20)
+    grid_plain_ms = time_ms(lambda: tb.stream_ingest_grid(*args, trap), 3)
+    gbytes = kernel_bytes("stream_ingest_grid", args, outs)
+    grid_bound = max(gbytes / HBM_BYTES_PER_S, args[1].numel()
+                     * OPS_PER_SAMPLE["stream_ingest_grid"]
+                     / FP64_OPS_PER_S) * 1e3
+    grid_shape = list(args[1].shape)
+    log(f"11d stream_ingest_grid at the stream's largest slab {grid_shape}: "
+        f"kernel {grid_ms:.4f} ms, plain {grid_plain_ms:.3f} ms, bound "
+        f"{grid_bound:.4f} ms, max_abs_err {grid_err:.3e}")
+    del outs, args, grid_args
+
+    # -- 11e. accounting ---------------------------------------------------
+    led = FleetLedger()
+    led.register_batch(res.gp_j, labels=res.scenarios, duration_s=longest)
+    led.register_monitor(live.monitor)
+    summary = led.summary()
+    by = led.by_label()
+    total_by = sum(v.total_j for v in by.values())
+    check(abs(total_by - summary.total_j) <= 1e-12 * abs(summary.total_j),
+          f"11e: by_label totals {total_by} vs the summary's "
+          f"{summary.total_j}")
+    log(f"11e FleetLedger: 11b's §5 energies over {longest:.6f} s and "
+        f"11d's monitor: {summary.n_devices} devices, {summary.total_j:.6f} "
+        f"J, sigma independent {summary.sigma_independent_j:.6f} J, "
+        f"worst case {summary.sigma_worstcase_j:.6f} J, mean power "
+        f"{summary.mean_power_w:.3f} W; by label "
+        + ", ".join(f"{k} {v.total_j:.3f} J" for k, v in by.items())
+        + f" (sum within 1e-12 of the total); datacenter_projection() "
+        f"{datacenter_projection()}")
+    e_small = res.gp_j[:MIX_LEDGER]
+    lab_small = res.scenarios[:MIX_LEDGER]
+    folds = []
+    for d in (dev, cpu):
+        small = FleetLedger()
+        small.register_batch(e_small.to(d), labels=lab_small,
+                             duration_s=longest)
+        folds.append((small.summary(), small.by_label()))
+    (sa, ba), (sb, bb) = folds
+    check(list(ba) == list(bb), "11e: labels card vs CPU")
+    led_rel = 0.0
+    for x, y in [(sa, sb)] + [(ba[k], bb[k]) for k in bb]:
+        check(x.n_devices == y.n_devices, "11e: device counts card vs CPU")
+        for f in dataclasses.fields(y):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            r_ = abs(u - v) / abs(v) if v else abs(u)
+            check(r_ <= 1e-12, f"11e: {f.name} card {u} vs CPU {v}")
+            led_rel = max(led_rel, r_)
+    log(f"11e a {MIX_LEDGER}-device ledger on the card and the CPU: summary "
+        f"and by_label within {led_rel:.3e} relative (bar 1e-12)")
+    del res, live, led
+    phase_s = time.perf_counter() - t_phase
+    log(f"11: phase 11 took {phase_s:.1f} s")
+    return {
+        "log_filter": dict(
+            launches_11c=lf_launches, launches_by_route_11c=lf_routes,
+            max_abs_err_11c=lf_err, ms_11c=lf_ms, plain_ms_11c=lf_plain_ms,
+            bound_ms_11c=lf_bound, shape_11c=[g, m, r, s],
+            adversarial_audit_s=adv_s),
+        "stream_ingest_grid": dict(
+            launches_11d=grid_launches, max_abs_err_11d=grid_err,
+            ms_11d=grid_ms, plain_ms_11d=grid_plain_ms,
+            bound_ms_11d=grid_bound, shape_11d=grid_shape, s_11d=live_s)}
 
 
 if __name__ == "__main__":

@@ -40,7 +40,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import profiles as _profiles
 from repro_torch.core.calibrate import nominal_record
 from repro_torch.core.ground_truth import ActivityTimeline, TimelineBank
-from repro_torch.core.load import multi_phase_workload
+from repro_torch.core.load import FleetScenarioSpec, multi_phase_workload
 from repro_torch.core.meter import (GoodPracticeConfig, Workload,
                                     as_workload_set,
                                     measure_good_practice_batch,
@@ -655,21 +655,25 @@ def _fleet_bank(names: Sequence[str], seed: int,
 def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
                 workload=None, seed: int = 0, good_practice: bool = False,
                 n_trials: int = 2, *, chunk_devices: Optional[int] = None,
-                mesh=None, device: DeviceLike = "cuda") -> FleetAuditResult:
+                mesh=None, prefetch_workloads: bool = False,
+                device: DeviceLike = "cuda") -> FleetAuditResult:
     """Monte-Carlo audit: N devices, each with hidden gain, offset, phase
     (and model gain), measured naively and optionally with the §5
     protocol; returns the per-device error distribution.
 
     ``profile`` is one catalog name or N of them; ``workload`` one shared
     :class:`~repro_torch.core.meter.Workload` (default: the 200 ms
-    two-phase ``audit_burst``), N workloads or a
-    :class:`~repro_torch.core.meter.WorkloadSet`.  ``chunk_devices``
-    streams the audit over device slabs of that size; each slab takes its
-    rows of the fleet's hidden parameters (drawn once), and its devices'
-    reading noise and §5 start offsets follow from the fleet row and the
-    protocol seed alone (:meth:`SensorBank._noise`), so a chunked audit
-    matches the unchunked one per device up to the order of float sums.
-    Error moments merge
+    two-phase ``audit_burst``), N workloads, a
+    :class:`~repro_torch.core.meter.WorkloadSet`, or a
+    :class:`~repro_torch.core.load.FleetScenarioSpec` of N devices, whose
+    slabs are synthesised on ``device`` as the audit reaches them
+    (``prefetch_workloads`` synthesises the next on a worker thread, with
+    the same result).  ``chunk_devices`` streams the audit over device
+    slabs of that size; each slab takes its rows of the fleet's hidden
+    parameters (drawn once), and its devices' reading noise and §5 start
+    offsets follow from the fleet row and the protocol seed alone
+    (:meth:`SensorBank._noise`), so a chunked audit matches the unchunked
+    one per device up to the order of float sums.  Error moments merge
     across slabs by :class:`StreamingMoments` (``result.streamed``);
     ``result.stats()`` gives the exact ones.  A fleet with any
     module-scope sensor (GH200 ``instant``) is measured with a zero host
@@ -688,8 +692,15 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
              else list(profile))
     if len(names) != n_devices:
         raise ValueError(f"{len(names)} profile names for {n_devices} devices")
-    ws_full = as_workload_set(workload, n_devices, dev)
-    shared = ws_full is None
+    spec = workload if isinstance(workload, FleetScenarioSpec) else None
+    if spec is not None:
+        if spec.n != n_devices:
+            raise ValueError(f"FleetScenarioSpec covers {spec.n} devices, "
+                             f"audit asked for {n_devices}")
+        ws_full = None
+    else:
+        ws_full = as_workload_set(workload, n_devices, dev)
+    shared = spec is None and ws_full is None
 
     if chunk_devices is None:
         slabs = [(0, n_devices)]
@@ -724,10 +735,17 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
                 str(label), StreamingMoments()).update(
                     err[torch.as_tensor(labels == label, device=dev)])
 
+    ws_iter = (spec.iter_workload_sets(slabs, prefetch=prefetch_workloads,
+                                       device=dev)
+               if spec is not None else None)
     for lo, hi in slabs:
         bank = fleet if len(slabs) == 1 else fleet.subset(np.arange(lo, hi))
-        ws = (None if shared
-              else ws_full if len(slabs) == 1 else ws_full.rows(lo, hi))
+        if spec is not None:
+            ws = next(ws_iter)
+        elif ws_full is not None:
+            ws = ws_full if len(slabs) == 1 else ws_full.rows(lo, hi)
+        else:
+            ws = None
         wl = workload if ws is None else ws
         baseline = 0.0 if bank.module_scope.any() else None
         naive = measure_naive_batch(bank, wl, host_baseline_w=baseline)

@@ -311,7 +311,8 @@ def _train_arrays(timeline: ActivityTimeline, reps: int, shifts: int,
                   W: float):
     """(edges, powers) of the §5.1 repetition train, built directly as
     flat CPU tensors (the reference's ``_train_arrays``): repetition
-    offsets are ``r·dur`` plus the gaps before them."""
+    offsets are ``r·dur`` plus the gaps before them.  One device's train:
+    :func:`_train_bank` builds a bank's rows of it at once."""
     rel = timeline.edges - timeline.t_start
     p = timeline.powers
     s = len(p)
@@ -338,31 +339,57 @@ def _train_arrays(timeline: ActivityTimeline, reps: int, shifts: int,
 
 def _train_bank(ws: WorkloadSet, rows: np.ndarray, reps: np.ndarray,
                 shifts: int, W: float) -> TimelineBank:
-    """Per-device repetition trains of workload rows ``rows``, built on the
-    host and stacked into a :class:`TimelineBank` on the workload bank's
-    device."""
-    e_all, p_all, idle_all, ns_all = (x.cpu() for x in
-                                      ws.timeline_bank.arrays)
-    built = []
-    for g, i in enumerate(rows):
-        k = int(ns_all[i])
-        tl = ActivityTimeline(e_all[i, :k + 1], p_all[i, :k],
-                              float(idle_all[i]))
-        built.append(_train_arrays(tl, int(reps[g]), shifts, W))
-    n_segs = torch.tensor([len(p) for _, p in built], dtype=I64)
-    smax = int(n_segs.max())
-    edges = torch.empty((len(built), smax + 1), dtype=F64)
-    powers = torch.empty((len(built), smax), dtype=F64)
-    idle = idle_all[torch.as_tensor(rows)]
-    for g, (e, p) in enumerate(built):
-        k = len(p)
-        edges[g, :k + 1] = e
-        edges[g, k + 1:] = e[-1]
-        powers[g, :k] = p
-        powers[g, k:] = idle[g]
-    dev = ws.timeline_bank.device
-    return TimelineBank(edges.to(dev), powers.to(dev), idle.to(dev),
-                        n_segs.to(dev))
+    """Per-device repetition trains of workload rows ``rows`` as one
+    :class:`TimelineBank` on the workload bank's device, built in tensor
+    ops over [rows, reps, segments]: row ``g`` is
+    ``_train_arrays(row rows[g], reps[g], shifts, W)``, each value by the
+    same arithmetic, so bit for bit.  Rep ``r``'s segment ``j`` lands at
+    ``r·k + j + gaps(r)`` (the gaps inserted before it), the gap before
+    rep ``r`` at ``r·k + gaps(r) - 1``, and the train's end at
+    ``reps·k + gaps(reps - 1)``; every other target is unique, so the
+    scatters are exact.  One host read: the widest train."""
+    tl = ws.timeline_bank
+    dev = tl.device
+    rows_t = torch.as_tensor(np.asarray(rows), device=dev)
+    e, p = tl.edges[rows_t], tl.powers[rows_t]
+    idle, k = tl.idle_w[rows_t], tl.n_segs[rows_t]
+    g, smax = p.shape
+    rmax = int(np.max(reps))
+    n_reps = torch.as_tensor(np.asarray(reps, dtype=np.int64), device=dev)
+    t0 = e[:, 0]
+    rel = e - t0[:, None]
+    dur = torch.gather(rel, 1, k[:, None])[:, 0]
+    r = torch.arange(rmax, device=dev)
+    if shifts > 0:
+        group = torch.clamp_min(n_reps // shifts, 1)
+        gaps = torch.minimum(r[None, :] // group[:, None],
+                             ((n_reps - 1) // group)[:, None])
+    else:
+        gaps = torch.zeros((g, rmax), dtype=I64, device=dev)
+    off = r.to(F64)[None, :] * dur[:, None] + gaps.to(F64) * W
+    live_rep = r[None, :] < n_reps[:, None]
+    n_out = n_reps * k + torch.gather(gaps, 1, (n_reps - 1)[:, None])[:, 0]
+    width = int(n_out.max())
+    drop = width + 1                  # a column no kept value lands in
+
+    j = torch.arange(smax, device=dev)
+    seg = live_rep[:, :, None] & (j[None, None, :] < k[:, None, None])
+    at = (r[None, :, None] * k[:, None, None] + j[None, None, :]
+          + gaps[:, :, None])
+    at = torch.where(seg, at, drop).reshape(g, -1)
+    new_gap = torch.cat([torch.zeros((g, 1), dtype=torch.bool, device=dev),
+                         gaps[:, 1:] > gaps[:, :-1]], dim=1) & live_rep
+    at_gap = torch.where(new_gap, r[None, :] * k[:, None] + gaps - 1, drop)
+
+    edges = torch.zeros((g, width + 2), dtype=F64, device=dev)
+    edges.scatter_(1, at, ((rel[:, None, :smax] + off[:, :, None])
+                           + t0[:, None, None]).reshape(g, -1))
+    edges.scatter_(1, at_gap, (off - W) + t0[:, None])
+    end = torch.gather(off, 1, (n_reps - 1)[:, None])[:, 0]
+    edges.scatter_(1, n_out[:, None], ((end + dur) + t0)[:, None])
+    powers = idle[:, None].repeat(1, width + 2)
+    powers.scatter_(1, at, p[:, None, :].expand(g, rmax, smax).reshape(g, -1))
+    return TimelineBank(edges[:, :width + 1], powers[:, :width], idle, n_out)
 
 
 def _reps_for(durations, cfg: GoodPracticeConfig) -> np.ndarray:

@@ -41,7 +41,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import fleet_engine as _fe
 from repro_torch.core import profiles as _profiles
 from repro_torch.core.fleet_engine import SensorBank
-from repro_torch.core.load import multi_phase_workload
+from repro_torch.core.load import FleetScenarioSpec, multi_phase_workload
 from repro_torch.core.meter import ModuleScopeError, Workload, as_workload_set
 from repro_torch.core.stream.estimators import (StreamCorrections,
                                                 default_calibrations)
@@ -421,8 +421,11 @@ def stream_fleet(n_devices: int,
     energies (raw, and calibrated and re-synchronised) are computed on
     the same schedules.  ``workload`` is one shared
     :class:`~repro_torch.core.meter.Workload` (default: the 200 ms
-    two-phase ``audit_burst``), N of them or a
-    :class:`~repro_torch.core.meter.WorkloadSet`.
+    two-phase ``audit_burst``), N of them, a
+    :class:`~repro_torch.core.meter.WorkloadSet` or a
+    :class:`~repro_torch.core.load.FleetScenarioSpec` of N devices,
+    whose slabs are synthesised on ``device``: once for the durations
+    and labels, and again as each is streamed.
     """
     dev = resolve_device(device)
     if workload is None:
@@ -433,7 +436,12 @@ def stream_fleet(n_devices: int,
     if len(names) != n_devices:
         raise ValueError(f"{len(names)} profile names for "
                          f"{n_devices} devices")
-    ws_full = as_workload_set(workload, n_devices, dev)
+    spec = workload if isinstance(workload, FleetScenarioSpec) else None
+    if spec is not None and spec.n != n_devices:
+        raise ValueError(f"FleetScenarioSpec covers {spec.n} devices, "
+                         f"stream asked for {n_devices}")
+    ws_full = (None if spec is not None
+               else as_workload_set(workload, n_devices, dev))
 
     if chunk_devices is None:
         slabs = [(0, n_devices)]
@@ -445,11 +453,22 @@ def stream_fleet(n_devices: int,
                  for lo in range(0, n_devices, chunk_devices)]
 
     def slab_ws(lo, hi):
+        if spec is not None:
+            return spec.workload_set(lo, hi, device=dev)
         if ws_full is None:
             return None
         return ws_full if len(slabs) == 1 else ws_full.rows(lo, hi)
 
-    if ws_full is None:
+    if spec is not None:
+        # pass 1: durations and labels, slab by slab (the banks are
+        # synthesised again in the stream pass)
+        durations = torch.empty(n_devices, dtype=F64, device=dev)
+        labels = np.empty(n_devices, dtype=object)
+        for lo, hi in slabs:
+            ws = slab_ws(lo, hi)
+            durations[lo:hi] = ws.durations_s
+            labels[lo:hi] = ws.scenarios
+    elif ws_full is None:
         durations = torch.full((n_devices,), workload.duration_s, dtype=F64,
                                device=dev)
         labels = np.full(n_devices, workload.scenario_label, dtype=object)

@@ -30,13 +30,10 @@ import torch
 
 from repro_torch.core.fleet_engine import StreamingMoments
 from repro_torch.core.stream.health import QUARANTINED, STALE
+from repro_torch.core.telemetry import CALIBRATED_TOLERANCE, SHUNT_TOLERANCE
 from repro_torch.engine_backend import torch_backend as _tb
 
 F64 = torch.float64
-#: per-device energy sigma of an uncalibrated shunt sensor, and of a
-#: calibrated one (the reference's telemetry tolerances)
-SHUNT_TOLERANCE = 0.05
-CALIBRATED_TOLERANCE = 0.01
 
 
 @dataclasses.dataclass(frozen=True)

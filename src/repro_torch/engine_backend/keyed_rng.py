@@ -7,9 +7,9 @@ sequence.  A draw is a function of its key (a 64-bit seed) and its counter
 ``(row, slot, tag, 0)``: the fleet row of a device, the index of the draw
 within that device's stream, and the stream's tag (reading noise, poll
 jitter, §5 start offsets, the meter's ADC noise, a square wave's period
-jitter, the micro-benchmarks' repetition seeds).  So a device's draws
-depend on neither which other devices share a call, nor how a fleet is cut
-into slabs, nor the device the tensors live on.
+jitter, the micro-benchmarks' repetition seeds, a scenario's shape).  So
+a device's draws depend on neither which other devices share a call, nor
+how a fleet is cut into slabs, nor the device the tensors live on.
 
 Philox4x32-10 is written in int64 torch ops.  torch has no uint64
 arithmetic and signed overflow must not be relied on, so each 32×32-bit
@@ -36,6 +36,7 @@ TAG_TRIAL = 3       # §5 trial start offsets, keyed by protocol seed
 TAG_ADC = 4         # GroundTruthMeter ADC noise
 TAG_PERIOD = 5      # square-wave period jitter, keyed by the wave's seed
 TAG_REPEAT = 6      # micro-benchmark repetition seeds
+TAG_SCENARIO = 7    # scenario shapes, keyed by each device's scenario seed
 
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
