@@ -138,7 +138,23 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    against its plain version at the stream's largest slab (11d); a
    ``FleetLedger`` of 11b's §5 energies and 11d's monitor, its labels
    summing to its total, and 2,000 devices of it on the card and the CPU
-   (11e).  The phase logs its wall, and the script its own.
+   (11e).  The phase logs its wall;
+12. the sharded audit (``fleet_audit_sharded`` over a ``("data",)``
+   mesh of ``torch.distributed`` processes), after phase 11: 11b's
+   million devices at world size 1 over NCCL in this process, in 11b's
+   100,000-device super-slabs, per device bitwise 11b's and its
+   streamed moments within 1e-12 relative (12a); phase 5's fleet at 1
+   shard in this process and over 2 and 4 spawned ranks that share the
+   card over gloo (NCCL refuses two ranks on one GPU), 25,000 rows a
+   rank a step, per device equal to phase 5's unsharded audit at 1e-12
+   relative (logged when bitwise), every rank launching ``log_filter``
+   (counted per rank) and holding it against its plain version at the
+   largest shape it gave it, devices/s per shard count as information
+   (12b); the reference's ``sharded.mega`` audit, 10,000,000 devices
+   naive in 100,000-device super-slabs at world size 1, above 10,000
+   devices/s with its streamed mean |error| within 1e-12 of the exact
+   one, its peak card memory logged (12c).  A rank that fails or does
+   not join in time fails the phase.  The script logs its own wall.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -331,6 +347,22 @@ MIX_ULP_KINDS = ("diurnal", "dvfs", "throttle")
 MIX_ULP_RTOL = 1e-15
 #: 7d: estimate_update_period's sensor classes and their periods
 #: (tests/test_microbench.py::test_update_period_catalog)
+#: phase 12, the sharded audit: 12a at world size 1 over NCCL on 11b's
+#: fleet, in 11b's slabs; 12b the Audit's fleet over 2 and 4 gloo ranks
+#: on the one card (NCCL refuses two ranks on one GPU), AUDIT_CHUNK rows
+#: a rank a step; 12c the reference's ``sharded.mega`` audit
+#: (``benchmarks/shard_worker.py``: 10,000,000 devices, profiles
+#: a100, a100, h100_instant, v100 in turn, naive only) at world size 1
+SHARD_DIR = os.path.join(ROOT, "build", "chip_shard")
+SHARD_WORLDS = (2, 4)
+SHARD_JOIN_S = 300
+SHARD_COLLECTIVE_S = 240
+SHARD_COLLECTIVE_REPS = 20
+MEGA_DEVICES = 10_000_000
+MEGA_PATTERN = ("a100", "a100", "h100_instant", "v100")
+MEGA_CHUNK = 100_000
+MEGA_MIN_DEVICES_PER_S = 10_000
+
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
                 ("rtx3090_instant", 0.100))
 
@@ -625,12 +657,16 @@ def main() -> int:
     results.extend(lm_serving(dev))
     torch.cuda.empty_cache()
     by_name = {r["name"]: r for r in results}
-    for name, extra in mixed_fleet(dev).items():
+    mix_11b, extras = mixed_fleet(dev)
+    torch.cuda.empty_cache()
+    for name, extra in list(extras.items()) + list(
+            sharded(dev, mix_11b).items()):
         rec = by_name[name]
         err = max(v for k, v in extra.items() if k.startswith("max_abs_err"))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec.update(extra)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log(smi)        # again near the end, where a tail of the output shows it
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3425,17 +3461,21 @@ def bank_truths(bank, labels, where):
 
 
 def log_scenarios(res, indent="  "):
-    """Naive and §5 mean |error| per scenario (information)."""
-    naive, gp = res.by_scenario(res.naive_err), res.by_scenario(res.gp_err)
+    """Naive and (where the audit ran it) §5 mean |error| per scenario
+    (information)."""
+    naive = res.by_scenario(res.naive_err)
+    gp = None if res.gp_err is None else res.by_scenario(res.gp_err)
     for label in sorted(naive):
-        log(f"{indent}{label:12s} n={naive[label]['n_devices']:7d} mean "
-            f"|err| naive {naive[label]['mean_abs_err']:.4%}, §5 "
-            f"{gp[label]['mean_abs_err']:.4%}")
+        log(f"{indent}{label:12s} n={naive[label]['n_devices']:8d} mean "
+            f"|err| naive {naive[label]['mean_abs_err']:.4%}"
+            + ("" if gp is None else
+               f", §5 {gp[label]['mean_abs_err']:.4%}"))
 
 
 def mixed_fleet(dev):
-    """Phase 11; returns what it adds to the log_filter and
-    stream_ingest_grid records."""
+    """Phase 11; returns 11b's audit (``res``) and its wall (``s``) for
+    phase 12, and what it adds to the log_filter and stream_ingest_grid
+    records."""
     import dataclasses
     from repro_torch.core import fleet_engine as fe
     from repro_torch.core import load as loads
@@ -3772,10 +3812,10 @@ def mixed_fleet(dev):
             led_rel = max(led_rel, r_)
     log(f"11e a {MIX_LEDGER}-device ledger on the card and the CPU: summary "
         f"and by_label within {led_rel:.3e} relative (bar 1e-12)")
-    del res, live, led
+    del live, led
     phase_s = time.perf_counter() - t_phase
     log(f"11: phase 11 took {phase_s:.1f} s")
-    return {
+    return dict(res=res, s=mega_s), {
         "log_filter": dict(
             launches_11c=lf_launches, launches_by_route_11c=lf_routes,
             max_abs_err_11c=lf_err, ms_11c=lf_ms, plain_ms_11c=lf_plain_ms,
@@ -3785,6 +3825,337 @@ def mixed_fleet(dev):
             launches_11d=grid_launches, max_abs_err_11d=grid_err,
             ms_11d=grid_ms, plain_ms_11d=grid_plain_ms,
             bound_ms_11d=grid_bound, shape_11d=grid_shape, s_11d=live_s)}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the sharded audit
+# ---------------------------------------------------------------------------
+def fresh_store(name):
+    """A ``file://`` rendezvous for a process group under SHARD_DIR; the
+    file must not outlive its group (a stale one joins old ranks)."""
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    path = os.path.join(SHARD_DIR, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return f"file://{path}"
+
+
+def collective_ms(e, mesh):
+    """Host ms of one moment round (the rank's block, the gather, the
+    tree and its one host read), the mean of SHARD_COLLECTIVE_REPS."""
+    from repro_torch.core.fleet_engine_shard import mesh_moments
+    mesh_moments(e, mesh)
+    t0 = time.perf_counter()
+    for _ in range(SHARD_COLLECTIVE_REPS):
+        mesh_moments(e, mesh)
+    return (time.perf_counter() - t0) * 1e3 / SHARD_COLLECTIVE_REPS
+
+
+def shard_rank(rank, world, store):
+    """One spawned rank of 12b: joins the gloo group, audits its part of
+    phase 5's fleet (every log_filter launch counted, the largest one
+    held against its plain version), and writes what it saw to
+    SHARD_DIR; rank 0 writes the whole result too."""
+    import datetime
+    from torch import distributed as dist
+    from repro_torch.core import fleet_engine as fe
+    from repro_torch.core.fleet_engine_shard import (fleet_audit_sharded,
+                                                     shard_rows)
+    from repro_torch.kernels import log_filter as k_log
+    from repro_torch.kernels.log_filter import log_filter
+    from repro_torch.launch.mesh import data_mesh
+
+    dist.init_process_group(
+        "gloo", init_method=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_COLLECTIVE_S))
+    try:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        mesh = data_mesh(world, "cuda")
+        captured = {}
+
+        def recording(tl, ticks, tau):
+            if ticks.numel() > captured.get("size", 0):
+                captured.update(size=ticks.numel(), args=(tl, ticks, tau))
+            return log_filter(tl, ticks, tau)
+
+        names = audit_fleet()
+        fe.log_filter = recording
+        try:
+            k_log.reset_launches()
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = fleet_audit_sharded(
+                AUDIT_DEVICES, names, seed=SEED, good_practice=True,
+                n_trials=AUDIT_TRIALS, mesh=mesh, shard_chunk=AUDIT_CHUNK,
+                device="cuda")
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            launches = log_filter.launches
+            by_route = dict(log_filter.launches_by_route)
+        finally:
+            fe.log_filter = log_filter
+        check(launches > 0, f"12b rank {rank} of {world} launched no "
+              "log_filter")
+        tl, ticks, tau = captured["args"]
+        err = log_filter_err(tl, ticks, tau)
+        a, b = shard_rows(0, AUDIT_CHUNK * world, world, rank)
+        coll = collective_ms(res.naive_err[a:b], mesh)
+        rec = dict(rank=rank, device=str(dev), launches=launches,
+                   launches_by_route=by_route, max_abs_err=err,
+                   shape=[*ticks.shape, *tl.edges.shape], s=secs,
+                   collective_ms=coll)
+        with open(os.path.join(SHARD_DIR, f"k{world}_r{rank}.json"),
+                  "w") as f:
+            json.dump(rec, f)
+        if rank == 0:
+            torch.save({key: getattr(res, key).cpu() for key in
+                        ("naive_j", "gp_j", "naive_err", "gp_err")}
+                       | {"streamed": res.streamed},
+                       os.path.join(SHARD_DIR, f"k{world}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world):
+    """12b's ``world`` ranks, spawned; fails unless every one exits 0
+    within SHARD_JOIN_S.  Returns the wall from the first start to the
+    last exit."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    store = fresh_store(f"pg_k{world}")
+    for r in range(world):
+        path = os.path.join(SHARD_DIR, f"k{world}_r{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=shard_rank, args=(r, world, store))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_JOIN_S
+    codes = []
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+        if p.is_alive():
+            p.terminate()
+            p.join(30)
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    check(codes == [0] * world,
+          f"12b: the {world} ranks exited {codes} (None: still running "
+          f"after {SHARD_JOIN_S} s, then ended)")
+    return time.perf_counter() - t0
+
+
+def rel_close(got, want, rtol):
+    """The largest relative difference; fails above ``rtol``."""
+    d = float(((got - want).abs() / want.abs()).max())
+    return d, d <= rtol
+
+
+def streamed_rel(got, want):
+    """The largest relative difference between two ``streamed`` dicts,
+    which must hold the same groups and counts."""
+    worst = 0.0
+    check(sorted(got) == sorted(want), "streamed: keys")
+    for key in want:
+        groups = [("overall", want[key]["overall"],
+                   got[key]["overall"])] + [
+            (label, st, got[key]["by_scenario"].get(label))
+            for label, st in want[key]["by_scenario"].items()]
+        check(sorted(got[key]["by_scenario"])
+              == sorted(want[key]["by_scenario"]), f"streamed {key}: labels")
+        for label, w, g in groups:
+            check(g["n_devices"] == w["n_devices"],
+                  f"streamed {key} {label}: counts")
+            for k in ("mean_err", "mean_abs_err", "std_err", "worst_abs"):
+                if w[k] != g[k]:
+                    worst = max(worst, abs(g[k] - w[k]) / abs(w[k]))
+    return worst
+
+
+def sharded(dev, mix_11b):
+    """Phase 12; returns what it adds to the log_filter record."""
+    from torch import distributed as dist
+    from repro_torch.core import fleet_engine as fe
+    from repro_torch.core import load as loads
+    from repro_torch.core.fleet_engine_shard import fleet_audit_sharded
+    from repro_torch.kernels.log_filter import log_filter
+    from repro_torch.launch.mesh import data_mesh
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=fresh_store("pg_world1"),
+                            rank=0, world_size=1)
+    try:
+        mesh = data_mesh(1)
+        log(f"12: process group nccl, world size 1, mesh {mesh}")
+
+        # -- 12a. 11b's million devices at world size 1 ---------------------
+        ref = mix_11b["res"]
+        spec = loads.FleetScenarioSpec(MIX_DEVICES, seed=MIX_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fleet_audit_sharded(
+            MIX_DEVICES, fleet_profile_names(MIX_DEVICES), workload=spec,
+            seed=MIX_SEED, good_practice=True, n_trials=AUDIT_TRIALS,
+            mesh=mesh, shard_chunk=MIX_CHUNK, device=dev)
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t0
+        for key in ("naive_j", "gp_j", "naive_err", "gp_err", "true_j"):
+            check(torch.equal(getattr(res, key), getattr(ref, key)),
+                  f"12a: {key} not bitwise 11b's")
+        check(np.array_equal(res.scenarios, ref.scenarios), "12a: labels")
+        a_rel = streamed_rel(res.streamed, ref.streamed)
+        check(a_rel <= 1e-12, f"12a: streamed moments {a_rel:.3e} from "
+              "11b's")
+        a_coll = collective_ms(res.naive_err[:MIX_CHUNK], mesh)
+        n_super = -(-MIX_DEVICES // MIX_CHUNK)
+        log(f"12a fleet_audit_sharded: 11b's {MIX_DEVICES} devices at "
+            f"world size 1 (nccl), shard_chunk {MIX_CHUNK}, naive + §5, "
+            f"prefetch, in {a_s:.3f} s ({MIX_DEVICES / a_s:.1f} devices/s, "
+            f"{a_s * 1e3 / n_super:.1f} ms a super-slab) against 11b's "
+            f"{mix_11b['s']:.3f} s ({MIX_DEVICES / mix_11b['s']:.1f} "
+            f"devices/s); per device bitwise 11b's, streamed moments "
+            f"within {a_rel:.3e} relative (bar 1e-12); a moment round "
+            f"(block, gather, tree, host read) {a_coll:.4f} ms")
+        del res, ref, mix_11b
+
+        # -- 12b. the Audit's fleet over 1, 2 and 4 shards ------------------
+        names = audit_fleet()
+        ref = fe.fleet_audit(AUDIT_DEVICES, names, seed=SEED,
+                             good_practice=True, n_trials=AUDIT_TRIALS,
+                             chunk_devices=AUDIT_CHUNK, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = fleet_audit_sharded(AUDIT_DEVICES, names, seed=SEED,
+                                  good_practice=True, n_trials=AUDIT_TRIALS,
+                                  mesh=mesh, shard_chunk=AUDIT_CHUNK,
+                                  device=dev)
+        torch.cuda.synchronize()
+        walls = {1: time.perf_counter() - t0}
+        for key in ("naive_j", "gp_j", "naive_err", "gp_err"):
+            check(torch.equal(getattr(one, key), getattr(ref, key)),
+                  f"12b: {key} at 1 shard not bitwise phase 5's")
+        del one
+        launches, errs, colls, shapes, worst = {}, [], {}, {}, {}
+        for world in SHARD_WORLDS:
+            log(f"12b: {world} ranks spawned on the one card, process group "
+                f"gloo (NCCL refuses two ranks on one GPU)")
+            span = spawn_ranks(world)
+            recs = []
+            for r in range(world):
+                with open(os.path.join(SHARD_DIR, f"k{world}_r{r}.json")) as f:
+                    recs.append(json.load(f))
+            got = torch.load(os.path.join(SHARD_DIR, f"k{world}.pt"))
+            rel = 0.0
+            bitwise = True
+            for key in ("naive_j", "gp_j", "naive_err", "gp_err"):
+                want = getattr(ref, key).cpu()
+                bitwise &= torch.equal(got[key], want)
+                if key.endswith("_j"):
+                    d, ok = rel_close(got[key], want, 1e-12)
+                    check(ok, f"12b: {key} over {world} ranks {d:.3e} from "
+                          "phase 5's")
+                    rel = max(rel, d)
+                else:
+                    d = float((got[key] - want).abs().max())
+                    check(d <= 1e-12, f"12b: {key} over {world} ranks off "
+                          f"by {d:.3e}")
+            s_rel = streamed_rel(got["streamed"], ref.streamed)
+            check(s_rel <= 1e-12, f"12b: streamed over {world} ranks "
+                  f"{s_rel:.3e} from phase 5's")
+            walls[world] = max(rec["s"] for rec in recs)
+            launches[world] = [rec["launches"] for rec in recs]
+            colls[world] = [rec["collective_ms"] for rec in recs]
+            shapes[world] = max((rec["shape"] for rec in recs),
+                                key=lambda x: x[0] * x[1])
+            errs.extend(rec["max_abs_err"] for rec in recs)
+            worst[world] = rel
+            log(f"12b {world} ranks: per device {'bitwise' if bitwise else 'within ' + format(rel, '.3e')} "
+                f"phase 5's unsharded audit (chunk_devices {AUDIT_CHUNK}), "
+                f"streamed within {s_rel:.3e}; log_filter launches by rank "
+                f"{launches[world]} (routes {[rec['launches_by_route'] for rec in recs]}), "
+                f"held against its plain version at each rank's largest "
+                f"shape (largest {shapes[world]}): max_abs_err "
+                f"{max(rec['max_abs_err'] for rec in recs):.3e}; the audit "
+                f"{walls[world]:.3f} s in the slowest rank, the spawn "
+                f"{span:.1f} s in all; a moment round by rank "
+                f"{[round(c, 4) for c in colls[world]]} ms")
+        log("12b devices/s by shard count (information: one card, so "
+            "dispatch, not scaling): " + ", ".join(
+                f"{k}: {AUDIT_DEVICES / s:.1f} ({s:.3f} s)"
+                for k, s in walls.items()))
+
+        # -- 12c. the reference's mega audit at world size 1 ---------------
+        mega_names = [MEGA_PATTERN[i % len(MEGA_PATTERN)]
+                      for i in range(MEGA_DEVICES)]
+        mega_spec = loads.FleetScenarioSpec(MEGA_DEVICES, seed=MIX_SEED)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mega = fleet_audit_sharded(MEGA_DEVICES, mega_names,
+                                   workload=mega_spec, seed=SEED, mesh=mesh,
+                                   shard_chunk=MEGA_CHUNK, device=dev)
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(mega.naive_j.shape == (MEGA_DEVICES,)
+              and bool(torch.isfinite(mega.naive_j).all())
+              and bool(torch.isfinite(mega.naive_err).all()),
+              "12c: audit result malformed")
+        exact = mega.stats()
+        streamed = mega.streamed["naive"]["overall"]
+        check(streamed["n_devices"] == MEGA_DEVICES, "12c: moment count")
+        gap = abs(streamed["mean_abs_err"] - exact["mean_abs_err"])
+        check(gap <= 1e-12, f"12c: streamed mean |err| {gap:.3e} from the "
+              "exact one")
+        dps = MEGA_DEVICES / c_s
+        check(dps > MEGA_MIN_DEVICES_PER_S,
+              f"12c: {dps:.1f} devices/s, below {MEGA_MIN_DEVICES_PER_S}")
+        log(f"12c fleet_audit_sharded: {MEGA_DEVICES} devices ("
+            f"{', '.join(MEGA_PATTERN)} in turn), FleetScenarioSpec(seed="
+            f"{MIX_SEED}), naive, world size 1 (nccl), super-slabs of "
+            f"{MEGA_CHUNK}, prefetch: {c_s:.3f} s, {dps:.1f} devices/s "
+            f"(limit {MEGA_MIN_DEVICES_PER_S}), peak card memory "
+            f"{peak / 2**30:.3f} GiB; mean |err| {exact['mean_abs_err']:.6%}"
+            f", streamed - exact {gap:.3e} (bar 1e-12)")
+        log_scenarios(mega)
+        del mega
+        # where 12c's host time goes (information): the fleet's hidden
+        # parameters, drawn once; a super-slab's labels (the whole
+        # fleet's permutation, redrawn every super-slab) and synthesis
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fe._fleet_bank(mega_names, SEED, dev)
+        torch.cuda.synchronize()
+        bank_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loads._mix_labels(MEGA_DEVICES, None, MIX_SEED)
+        labels_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mega_spec.workload_set(0, MEGA_CHUNK, device=dev)
+        torch.cuda.synchronize()
+        slab_s = time.perf_counter() - t0
+        n_super = -(-MEGA_DEVICES // MEGA_CHUNK)
+        log(f"12c host work alone: the {MEGA_DEVICES}-device fleet's hidden "
+            f"parameters {bank_s:.3f} s; a super-slab's labels "
+            f"{labels_s:.3f} s ({n_super} super-slabs: {labels_s * n_super:.1f}"
+            f" s), its whole synthesis {slab_s:.3f} s ({slab_s * n_super:.1f}"
+            f" s); the audit {c_s * 1e3 / n_super:.1f} ms a super-slab")
+    finally:
+        dist.destroy_process_group()
+    log(f"12: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {"log_filter": dict(
+        launches_12b=launches, max_abs_err_12b=max(errs),
+        shape_12b=shapes, collective_ms_12b=colls,
+        devices_per_s_12b={k: AUDIT_DEVICES / s for k, s in walls.items()},
+        mega_devices_per_s=dps, mega_s=c_s, mega_fleet_bank_s=bank_s,
+        mega_labels_s=labels_s, mega_synthesis_s=slab_s)}
 
 
 if __name__ == "__main__":

@@ -525,8 +525,15 @@ class StreamingMoments:
         self.mean_abs = 0.0
         self.max_abs = 0.0
 
-    def update(self, e: torch.Tensor) -> "StreamingMoments":
-        return self.merge(*_tb.err_moments(e))
+    def update(self, e: torch.Tensor, mesh=None) -> "StreamingMoments":
+        """Fold the moments of errors ``e``.  With ``mesh`` (a ``"data"``
+        mesh, :func:`repro_torch.launch.mesh.data_mesh`) ``e`` is this
+        rank's part: the ranks' blocks are gathered and merged by the
+        Chan tree, and every rank folds the whole."""
+        if mesh is None:
+            return self.merge(*_tb.err_moments(e))
+        from repro_torch.core.fleet_engine_shard import mesh_moments
+        return self.merge(*mesh_moments(e, mesh))
 
     def merge(self, nb: int, mean_b: float, m2_b: float,
               mean_abs_b: float, max_abs_b: float) -> "StreamingMoments":
@@ -652,6 +659,79 @@ def _fleet_bank(names: Sequence[str], seed: int,
     return SensorBank.from_catalog(list(names), seed=seed, device=device)
 
 
+def _audit_setup(n_devices: int, profile, workload, good_practice: bool,
+                 dev: torch.device):
+    """Normalise ``fleet_audit``'s arguments: ``(workload, names, spec,
+    ws_full, calibs)`` with the default ``audit_burst``, one profile name
+    a device, the :class:`FleetScenarioSpec` (or ``None``), the whole
+    :class:`WorkloadSet` (or ``None``) and the §5 nominal records."""
+    if workload is None:
+        workload = Workload("audit_burst", multi_phase_workload(
+            [(0.130, 215.0), (0.070, 165.0)]))
+    names = ([profile] * n_devices if isinstance(profile, str)
+             else list(profile))
+    if len(names) != n_devices:
+        raise ValueError(f"{len(names)} profile names for {n_devices} devices")
+    spec = workload if isinstance(workload, FleetScenarioSpec) else None
+    if spec is not None:
+        if spec.n != n_devices:
+            raise ValueError(f"FleetScenarioSpec covers {spec.n} devices, "
+                             f"audit asked for {n_devices}")
+        ws_full = None
+    else:
+        ws_full = as_workload_set(workload, n_devices, dev)
+    calibs = ({name: nominal_record("fleet", _profiles.get(name))
+               for name in set(names)} if good_practice else {})
+    return workload, names, spec, ws_full, calibs
+
+
+def _slab_workloads(spec, ws_full, slabs, prefetch: bool,
+                    dev: torch.device):
+    """Each slab's :class:`WorkloadSet`, in order (``None`` a slab for a
+    shared workload): synthesised from ``spec``, or rows of ``ws_full``."""
+    if spec is not None:
+        yield from spec.iter_workload_sets(slabs, prefetch=prefetch,
+                                           device=dev)
+        return
+    for lo, hi in slabs:
+        if ws_full is None:
+            yield None
+        else:
+            yield (ws_full if (lo, hi) == (0, len(ws_full))
+                   else ws_full.rows(lo, hi))
+
+
+def _audit_slab(fleet: SensorBank, lo: int, hi: int, ws, workload, calibs,
+                good_practice: bool, n_trials: int):
+    """Rows ``lo .. hi-1`` of ``fleet`` measured naively (and with §5):
+    ``({"naive_j", "naive_err"[, "true_j"][, "gp_j", "gp_err"]}, labels)``
+    as [hi - lo] tensors, ``true_j`` and the host labels only for
+    per-device workloads."""
+    bank = (fleet if (lo, hi) == (0, fleet.n_devices)
+            else fleet.subset(np.arange(lo, hi)))
+    wl = workload if ws is None else ws
+    baseline = 0.0 if bank.module_scope.any() else None
+    naive = measure_naive_batch(bank, wl, host_baseline_w=baseline)
+    tr = workload.true_energy_j if ws is None else ws.true_energies_j
+    out = {"naive_j": naive, "naive_err": (naive - tr) / tr}
+    if ws is not None:
+        out["true_j"] = tr
+    if good_practice:
+        est = measure_good_practice_batch(
+            bank, wl, calibs, GoodPracticeConfig(n_trials=n_trials),
+            host_baseline_w=baseline, seeds=np.arange(lo, hi))
+        out["gp_j"] = est.joules_per_rep
+        out["gp_err"] = (est.joules_per_rep - tr) / tr
+    return out, (None if ws is None else ws.scenarios)
+
+
+def _streamed(sm: Dict[str, Dict]) -> Dict[str, Dict]:
+    return {key: {"overall": v["overall"].stats(),
+                  "by_scenario": {k: s.stats() for k, s in
+                                  sorted(v["by_scenario"].items())}}
+            for key, v in sm.items()}
+
+
 def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
                 workload=None, seed: int = 0, good_practice: bool = False,
                 n_trials: int = 2, *, chunk_devices: Optional[int] = None,
@@ -678,28 +758,23 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
     ``result.stats()`` gives the exact ones.  A fleet with any
     module-scope sensor (GH200 ``instant``) is measured with a zero host
     baseline, debited from module rows only.
+
+    ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
+    ``"data"`` dimension, :func:`repro_torch.launch.mesh.data_mesh`)
+    shards the audit over the mesh's processes: every rank calls this
+    with the same arguments, audits its part of each ``chunk_devices``
+    super-slab (default: the whole fleet) and returns the whole result
+    (:func:`repro_torch.core.fleet_engine_shard.fleet_audit_sharded`).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the audit sharded over several cards) is not ported "
-            "yet: it comes with the sharded-audit slice on "
-            "torch.distributed (ROADMAP.md, queue A)")
+        from repro_torch.core import fleet_engine_shard
+        return fleet_engine_shard.audit_over_mesh(
+            n_devices, profile, workload, seed, good_practice, n_trials,
+            chunk=n_devices if chunk_devices is None else chunk_devices,
+            mesh=mesh, prefetch_workloads=prefetch_workloads, device=device)
     dev = resolve_device(device)
-    if workload is None:
-        workload = Workload("audit_burst", multi_phase_workload(
-            [(0.130, 215.0), (0.070, 165.0)]))
-    names = ([profile] * n_devices if isinstance(profile, str)
-             else list(profile))
-    if len(names) != n_devices:
-        raise ValueError(f"{len(names)} profile names for {n_devices} devices")
-    spec = workload if isinstance(workload, FleetScenarioSpec) else None
-    if spec is not None:
-        if spec.n != n_devices:
-            raise ValueError(f"FleetScenarioSpec covers {spec.n} devices, "
-                             f"audit asked for {n_devices}")
-        ws_full = None
-    else:
-        ws_full = as_workload_set(workload, n_devices, dev)
+    workload, names, spec, ws_full, calibs = _audit_setup(
+        n_devices, profile, workload, good_practice, dev)
     shared = spec is None and ws_full is None
 
     if chunk_devices is None:
@@ -710,16 +785,13 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
                              f"got {chunk_devices}")
         slabs = [(lo, min(lo + chunk_devices, n_devices))
                  for lo in range(0, n_devices, chunk_devices)]
-    calibs = ({name: nominal_record("fleet", _profiles.get(name))
-               for name in set(names)} if good_practice else {})
 
     fleet = _fleet_bank(names, seed, dev)
-    naive_j = torch.empty(n_devices, dtype=F64, device=dev)
-    naive_err = torch.empty_like(naive_j)
-    truth_v = None if shared else torch.empty_like(naive_j)
+    keys = ["naive_j", "naive_err"] + ([] if shared else ["true_j"]) + (
+        ["gp_j", "gp_err"] if good_practice else [])
+    full = {key: torch.empty(n_devices, dtype=F64, device=dev)
+            for key in keys}
     scenarios = None if shared else np.empty(n_devices, dtype=object)
-    gp_j = torch.empty_like(naive_j) if good_practice else None
-    gp_err = torch.empty_like(naive_j) if good_practice else None
     sm: Dict[str, Dict] = {
         "naive": {"overall": StreamingMoments(), "by_scenario": {}}}
     if good_practice:
@@ -735,45 +807,22 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
                 str(label), StreamingMoments()).update(
                     err[torch.as_tensor(labels == label, device=dev)])
 
-    ws_iter = (spec.iter_workload_sets(slabs, prefetch=prefetch_workloads,
-                                       device=dev)
-               if spec is not None else None)
-    for lo, hi in slabs:
-        bank = fleet if len(slabs) == 1 else fleet.subset(np.arange(lo, hi))
-        if spec is not None:
-            ws = next(ws_iter)
-        elif ws_full is not None:
-            ws = ws_full if len(slabs) == 1 else ws_full.rows(lo, hi)
-        else:
-            ws = None
-        wl = workload if ws is None else ws
-        baseline = 0.0 if bank.module_scope.any() else None
-        naive = measure_naive_batch(bank, wl, host_baseline_w=baseline)
-        tr = workload.true_energy_j if ws is None else ws.true_energies_j
-        err = (naive - tr) / tr
-        labels = None if ws is None else ws.scenarios
-        naive_j[lo:hi] = naive
-        naive_err[lo:hi] = err
-        if truth_v is not None:
-            truth_v[lo:hi] = tr
+    ws_iter = _slab_workloads(spec, ws_full, slabs, prefetch_workloads, dev)
+    for (lo, hi), ws in zip(slabs, ws_iter):
+        out, labels = _audit_slab(fleet, lo, hi, ws, workload, calibs,
+                                  good_practice, n_trials)
+        for key in keys:
+            full[key][lo:hi] = out[key]
+        if scenarios is not None:
             scenarios[lo:hi] = labels
-        _stream("naive", err, labels)
-
+        _stream("naive", out["naive_err"], labels)
         if good_practice:
-            est = measure_good_practice_batch(
-                bank, wl, calibs, GoodPracticeConfig(n_trials=n_trials),
-                host_baseline_w=baseline, seeds=np.arange(lo, hi))
-            ge = (est.joules_per_rep - tr) / tr
-            gp_j[lo:hi] = est.joules_per_rep
-            gp_err[lo:hi] = ge
-            _stream("good_practice", ge, labels)
+            _stream("good_practice", out["gp_err"], labels)
 
-    streamed = {key: {"overall": v["overall"].stats(),
-                      "by_scenario": {k: s.stats() for k, s in
-                                      sorted(v["by_scenario"].items())}}
-                for key, v in sm.items()}
     return FleetAuditResult(
         n_devices=n_devices, profile_names=names,
-        true_j=(workload.true_energy_j if shared else truth_v),
-        naive_j=naive_j, naive_err=naive_err, gp_j=gp_j, gp_err=gp_err,
-        scenarios=scenarios, chunk_devices=chunk_devices, streamed=streamed)
+        true_j=(workload.true_energy_j if shared else full["true_j"]),
+        naive_j=full["naive_j"], naive_err=full["naive_err"],
+        gp_j=full.get("gp_j"), gp_err=full.get("gp_err"),
+        scenarios=scenarios, chunk_devices=chunk_devices,
+        streamed=_streamed(sm))

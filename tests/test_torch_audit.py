@@ -347,9 +347,16 @@ def test_entry_points_refuse_a_missing_card_and_name_the_cpu():
     fe.SensorBank.from_catalog(["kepler", "maxwell", "fermi2"], device=CPU)
 
 
-def test_later_slices_raise_and_say_which():
-    with pytest.raises(NotImplementedError, match="sharded-audit slice"):
-        fe.fleet_audit(4, "a100", mesh=object(), device=CPU)
+class _ModelMesh:
+    """A stand-in for a mesh whose only dimension is not ``"data"``."""
+    mesh_dim_names = ("model",)
+
+
+@pytest.mark.parametrize("mesh", [object(), _ModelMesh()],
+                         ids=["no_dimensions", "model_only"])
+def test_a_mesh_without_data_raises_and_names_data_mesh(mesh):
+    with pytest.raises(ValueError, match="data_mesh"):
+        fe.fleet_audit(4, "a100", mesh=mesh, device=CPU)
 
 
 # ---------------------------------------------------------------------------
