@@ -154,7 +154,26 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    naive in 100,000-device super-slabs at world size 1, above 10,000
    devices/s with its streamed mean |error| within 1e-12 of the exact
    one, its peak card memory logged (12c).  A rank that fails or does
-   not join in time fails the phase.  The script logs its own wall.
+   not join in time fails the phase.  The script logs its own wall;
+13. the mixture-of-experts decoders and the serving CLI, after phase 12:
+   ``flash_attention`` against ``blocked_attention`` within
+   ``FLASH_TOL`` at the three models' attention shapes, full causal
+   attention over 2000 positions (granite-moe's GQA 24:8 at head_dim 64,
+   qwen2-moe's and olmo-1b's MHA 16:16 at head_dim 128), on the tensor
+   cores, timed beside ``scaled_dot_product_attention`` (13a); qwen2-moe's
+   first MoE layer in float32 on 512 tokens on the card and the CPU:
+   top-k experts and kept mask equal wherever the router's f32 error
+   cannot reorder the k-th and (k+1)-th probability (the tokens inside
+   that margin logged), ``y`` within ``MOE_LAYER_REL`` (13b); olmo-1b,
+   granite-moe-3b-a800m and qwen2-moe-a2.7b at full width and depth in
+   bf16: a prefill of 2 x 2000 tokens into a 2048-token cache (one
+   tensor-core ``flash_attention`` launch a layer), each MoE layer's
+   dropped share, 16 greedy decode steps, and ``prefill(1999) +
+   decode_step`` against ``prefill(2000)`` on the rows that kept the same
+   assignments both ways (13c); ``python -m repro_torch.launch.serve
+   --no-reduced`` for each of the three in a subprocess, then the reduced
+   default on the card and with ``--torch-device cpu``, each serving 8/8
+   requests (13d).  The phase logs its wall.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -164,6 +183,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -362,6 +382,33 @@ MEGA_DEVICES = 10_000_000
 MEGA_PATTERN = ("a100", "a100", "h100_instant", "v100")
 MEGA_CHUNK = 100_000
 MEGA_MIN_DEVICES_PER_S = 10_000
+#: phase 13, the mixture-of-experts decoders and the serving CLI at full
+#: width and depth, bf16, random weights from the seed: per model a
+#: prefill of 2 prompts of 2000 tokens into a 2048-token cache, then 16
+#: greedy decode steps
+MOE_ARCHS = ("olmo-1b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b")
+MOE_BATCH = 2
+MOE_PROMPT = 2000
+MOE_MAX_SEQ = 2048
+MOE_DECODE = 16
+#: 13a: attention's (B, S, Hq, Hkv, head_dim) in granite-moe, and in
+#: qwen2-moe and olmo-1b; full causal (window 0)
+MOE_ATTN_SHAPES = ((MOE_BATCH, MOE_PROMPT, 24, 8, 64),
+                   (MOE_BATCH, MOE_PROMPT, 16, 16, 128))
+#: 13b: one full-width MoE layer (qwen2-moe's, 588 M parameters in f32) on
+#: 512 tokens, card against CPU
+MOE_LAYER_ARCH = "qwen2-moe-a2.7b"
+MOE_LAYER_TOKENS = 512
+#: 13b: y on the card within this share of max|y| on the CPU, on the
+#: tokens whose routing both must agree on: the order of the f32 sums in
+#: the products over D = 2048 and F = 1408
+MOE_LAYER_REL = 1e-4
+#: 13b: the f32 unit roundoff, and the ulps allowed to the softmax's exp,
+#: sum and division in the router's reorder margin
+F32_U = 2.0 ** -24
+SOFTMAX_ULPS = 16
+#: 13d: one CLI run's limit
+MOE_CLI_TIMEOUT_S = 600
 
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
                 ("rtx3090_instant", 0.100))
@@ -659,8 +706,10 @@ def main() -> int:
     by_name = {r["name"]: r for r in results}
     mix_11b, extras = mixed_fleet(dev)
     torch.cuda.empty_cache()
-    for name, extra in list(extras.items()) + list(
-            sharded(dev, mix_11b).items()):
+    later = list(extras.items()) + list(sharded(dev, mix_11b).items())
+    torch.cuda.empty_cache()
+    later += list(moe_serving(dev).items())
+    for name, extra in later:
         rec = by_name[name]
         err = max(v for k, v in extra.items() if k.startswith("max_abs_err"))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -3059,21 +3108,24 @@ def flash_cuda_cores_ms(q, k, v, kw, want):
 
 def sdpa_ms(q, k, v, window):
     """``scaled_dot_product_attention``'s time on the same function: a
-    causal sliding-window boolean mask, the KV head shared by the group
-    (``enable_gqa``; where this PyTorch lacks it, K and V expanded to
-    every head before the clock).  Returns (ms, largest difference from
-    flash_attention's output, how the group's KV head was shared)."""
+    causal sliding-window boolean mask (``is_causal`` where the window is
+    0), the KV head shared by the group (``enable_gqa``; where this
+    PyTorch lacks it, K and V expanded to every head before the clock).
+    Returns (ms, largest difference from flash_attention's output, how
+    the group's KV head was shared)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     s, t = q.shape[1], k.shape[1]
-    pos_q = torch.arange(s, device=q.device)[:, None]
-    pos_k = torch.arange(t, device=q.device)[None, :]
-    mask = (pos_k <= pos_q) & (pos_k > pos_q - window)
+    if window > 0:
+        pos_q = torch.arange(s, device=q.device)[:, None]
+        pos_k = torch.arange(t, device=q.device)[None, :]
+        masking = dict(attn_mask=(pos_k <= pos_q) & (pos_k > pos_q - window))
+    else:
+        masking = dict(is_causal=True)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     g = q.shape[2] // k.shape[2]
     try:
-        F.scaled_dot_product_attention(qt[:, :, :1], kt, vt,
-                                       attn_mask=mask[:1], enable_gqa=True)
+        F.scaled_dot_product_attention(qt[:, :, :1], kt, vt, enable_gqa=True)
         extra, how = dict(enable_gqa=True), "enable_gqa"
     except TypeError:
         kt = kt.repeat_interleave(g, dim=1)
@@ -3081,8 +3133,7 @@ def sdpa_ms(q, k, v, window):
         extra, how = {}, "K and V expanded"
 
     def run():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              **extra)
+        return F.scaled_dot_product_attention(qt, kt, vt, **masking, **extra)
     ms = time_ms(run, 5)
     diff = float((run().transpose(1, 2).float() - flash_attention(
         q, k, v, window=window).float()).abs().max())
@@ -4156,6 +4207,335 @@ def sharded(dev, mix_11b):
         devices_per_s_12b={k: AUDIT_DEVICES / s for k, s in walls.items()},
         mega_devices_per_s=dps, mega_s=c_s, mega_fleet_bank_s=bank_s,
         mega_labels_s=labels_s, mega_synthesis_s=slab_s)}
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts decoders and the serving CLI
+# ---------------------------------------------------------------------------
+
+def moe_attention(dev):
+    """13a: flash_attention against blocked_attention at the new models'
+    shapes (full causal, bf16), each on the tensor cores, timed beside
+    scaled_dot_product_attention.  Returns a record a shape."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import blocked_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 53)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    out = []
+    for b, s, hq, hkv, d in MOE_ATTN_SHAPES:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        err, rel = flash_check(q, k, v, kw)
+        check(rel <= FLASH_MAIN_REL_L2, f"13a: flash_attention at q "
+              f"{list(q.shape)}: relative L2 difference {rel:.3e} from "
+              f"blocked_attention, above {FLASH_MAIN_REL_L2:g}")
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw), 20)
+        plain_ms = time_ms(lambda: blocked_attention(q, k, v, **kw), 1)
+        lib_ms, lib_diff, lib_how = sdpa_ms(q, k, v, 0)
+        pairs = attention_pairs(s, s, 0)
+        flops = 4 * d * pairs * b * hq
+        ops_ms = flops / BF16_OPS_PER_S * 1e3
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        log(f"13a flash_attention at q {list(q.shape)} k/v {list(k.shape)} "
+            f"bf16, full causal, tensor cores: kernel {ms:.4f} ms, "
+            f"{bound / ms:.1%} of the bound {bound:.4f} ms ({pairs:,} pairs "
+            f"per head, {flops:.4e} FLOPs at the bf16 tensor rate; bytes "
+            f"{bytes_ms:.4f} ms); largest difference from blocked_attention "
+            f"{err:.3e}, relative L2 {rel:.3e}; scaled_dot_product_attention "
+            f"(is_causal, {lib_how}) {lib_ms:.4f} ms, {lib_ms / ms:.2f}x the "
+            f"kernel (largest difference {lib_diff:.3e}); plain "
+            f"{plain_ms:.3f} ms")
+        out.append(dict(
+            shape=[list(q.shape), list(k.shape)], window=0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=lib_ms, library_call=(
+                f"scaled_dot_product_attention, is_causal, {lib_how}"),
+            library_max_abs_diff=lib_diff, max_abs_err=err, rel_l2=rel,
+            pairs_per_head=pairs, flops=flops))
+        del q, k, v
+    return out
+
+
+def topk_sets(d):
+    """A Dispatch's top-k experts in ascending order a token, with the
+    kept mask in the same order (the order within the top k does not
+    change a token's slots)."""
+    order = d.topi.argsort(-1)
+    return d.topi.gather(-1, order).cpu(), d.keep.gather(-1, order).cpu()
+
+
+def moe_layer(dev):
+    """13b: qwen2-moe's MoE layer at full width in float32 on the card and
+    the CPU, on the same tokens: routing equal wherever the router's f32
+    error cannot reorder the k-th and (k+1)-th probability, y within
+    MOE_LAYER_REL.  Returns its figures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api, moe
+    from repro_torch.models import transformer as tf
+    # full f32 products on the card, as 8a sets them: TF32 would move y
+    # past MOE_LAYER_REL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_LAYER_ARCH).replace(n_layers=1,
+                                             param_dtype="float32")
+    p_dev = tf.take(api.init_params(SEED + 59, cfg, dev)["blocks"]
+                    ["p0_attn"]["moe"], 0)
+    p_cpu = {n: t.cpu() for n, t in p_dev.items()}
+    n_params = sum(t.numel() for t in p_dev.values())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 61)
+    x = torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor, act=cfg.act)
+    with moe.record_dispatch() as rec:
+        y, aux = moe.moe_ffn(x, p_dev, **kw)
+        t0 = time.perf_counter()
+        y_cpu, aux_cpu = moe.moe_ffn(x.cpu(), p_cpu, **kw)
+        cpu_s = time.perf_counter() - t0
+    card, cpu = rec
+    layer_ms = time_ms(lambda: moe.moe_ffn(x, p_dev, **kw), 5)
+    check(y.shape == x.shape and bool(torch.isfinite(y).all()),
+          f"13b: y {y.dtype}{tuple(y.shape)} on the card, or not finite")
+    # the router's f32 error on a token: a dot product of D terms is off
+    # by at most gamma_D sum_d |x_d w_d| (gamma_D = D u / (1 - D u)); each
+    # logit moving that far moves a probability by a factor of at most
+    # exp(2 err), and the softmax rounds a few ulps more
+    D, k = cfg.d_model, cfg.top_k
+    gamma = D * F32_U / (1 - D * F32_U)
+    err = gamma * (x.cpu().reshape(-1, D).double().abs()
+                   @ p_cpu["router"].double().abs()).amax(-1)
+    top = cpu.probs.double().sort(-1, descending=True).values
+    margin = (top[:, k - 1] + top[:, k]) * (2 * err
+                                            + SOFTMAX_ULPS * F32_U)
+    near = (top[:, k - 1] - top[:, k]) <= margin
+    (ti_card, kp_card), (ti_cpu, kp_cpu) = topk_sets(card), topk_sets(cpu)
+    agree = (ti_card == ti_cpu).all(-1) & (kp_card == kp_cpu).all(-1)
+    check(bool(agree[~near].all()), f"13b: routing on the card differs "
+          f"from the CPU's at {int((~agree & ~near).sum())} tokens outside "
+          f"the router's f32 margin")
+    diff = float((y.cpu() - y_cpu).reshape(-1, D)[agree].abs().max())
+    scale = float(y_cpu.abs().max())
+    check(diff <= MOE_LAYER_REL * scale, f"13b: y on the card off the "
+          f"CPU's by {diff:.3e} (max|y| {scale:.3e}) on the tokens whose "
+          f"routing agrees")
+    cap = moe.capacity(MOE_LAYER_TOKENS, k, cfg.capacity_factor,
+                       cfg.n_experts_padded)
+    log(f"13b {MOE_LAYER_ARCH} MoE layer, float32, {n_params:,} parameters "
+        f"({cfg.n_experts} experts padded to {cfg.n_experts_padded}, top "
+        f"{k}, {cfg.n_shared_experts} shared), {MOE_LAYER_TOKENS} tokens, "
+        f"capacity {cap} a expert: {int(near.sum())} tokens inside the "
+        f"router's f32 reorder margin (median margin "
+        f"{float(margin.median()):.3e}), {int((~agree).sum())} of them "
+        f"routed otherwise; kept {int(kp_cpu.sum())} of {kp_cpu.numel()} "
+        f"assignments; y card vs CPU largest difference {diff:.3e} "
+        f"({diff / scale:.3e} of max|y|, at most {MOE_LAYER_REL:g}) on "
+        f"{int(agree.sum())} tokens; aux {float(aux):.9f} vs "
+        f"{float(aux_cpu):.9f}; the layer {layer_ms:.3f} ms on the card, "
+        f"{cpu_s:.2f} s on the CPU")
+    return dict(tokens=MOE_LAYER_TOKENS, parameters=n_params, capacity=cap,
+                near_tokens=int(near.sum()), routed_otherwise=int(
+                    (~agree).sum()), max_abs_diff=diff, max_abs_y=scale,
+                aux=float(aux), aux_cpu=float(aux_cpu), ms=layer_ms,
+                cpu_s=cpu_s)
+
+
+def moe_model(dev, arch):
+    """13c for one arch at full width and depth in bf16: the prefill (its
+    flash_attention launches, every MoE layer's dropped share), 16 greedy
+    decode steps, and prefill(S-1) + decode_step against prefill(S) on the
+    rows that kept the same assignments in both (below).  Returns its
+    figures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api, moe
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = api.init_params(SEED + 67, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 71)
+    toks = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT),
+                         generator=gen, device=dev, dtype=torch.int32)
+    # warm-up: cuBLAS handles and every kernel's first launch
+    warm = min(64, MOE_PROMPT - 1)
+    _, c = tf.prefill(params, cfg, {"tokens": toks[:, :warm]},
+                      max_seq=MOE_MAX_SEQ)
+    api.decode_step(params, cfg, c, {"tokens": toks[:, warm:warm + 1],
+                                     "pos": warm})
+    del c
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    kfa.reset_launches()
+    with moe.record_dispatch() as rec:
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(params, cfg, {"tokens": toks},
+                                   max_seq=MOE_MAX_SEQ)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    routes = dict(flash_attention.launches_by_route)
+    check(tuple(logits.shape) == (MOE_BATCH, MOE_PROMPT, cfg.vocab)
+          and logits.dtype == torch.float32, f"13c {arch}: prefill logits "
+          f"{logits.dtype}{tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"13c {arch}: prefill logits "
+          f"not finite")
+    check(launches == n and routes[kfa.TENSOR_CORES] == n, f"13c {arch}: a "
+          f"prefill launched flash_attention {launches} times {routes}, not "
+          f"once a layer ({n}) on the tensor cores")
+    check(len(rec) == (n if cfg.family == "moe" else 0), f"13c {arch}: "
+          f"{len(rec)} MoE layers ran")
+    dropped = [1.0 - float(d.keep.float().mean()) for d in rec]
+    last = logits[:, -1].clone()
+    del logits
+    nxt = last.argmax(-1)
+    generated, step_s = [], []
+    for i in range(MOE_DECODE):
+        t0 = time.perf_counter()
+        lg, cache = api.decode_step(params, cfg, cache, {
+            "tokens": nxt[:, None].to(torch.int32), "pos": MOE_PROMPT + i})
+        nxt = lg[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(lg).all()), f"13c {arch}: decode step {i}: "
+              f"logits not finite")
+        generated.append(nxt.tolist())
+    del cache, lg
+    check(flash_attention.launches == launches, f"13c {arch}: decode "
+          f"launched flash_attention")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # -- prefill(S-1) + decode_step against prefill(S) -----------------------
+    with moe.record_dispatch() as rec2:
+        lg, c = tf.prefill(params, cfg, {"tokens": toks[:, :-1]},
+                           max_seq=MOE_MAX_SEQ)
+        del lg
+        lg, _ = api.decode_step(params, cfg, c, {
+            "tokens": toks[:, -1:], "pos": MOE_PROMPT - 1})
+        del c
+    dec = lg[:, 0]
+    # a row computes the same function both ways where the decode step
+    # keeps every assignment (it always does: 2 tokens against 128 slots),
+    # prefill(S) keeps every assignment of the row's last token, and both
+    # prefills keep the same assignments of its first S-1 tokens.  The
+    # capacity drops the latest tokens first, so prefill(S)'s last token
+    # may lose experts the decode step keeps: that row is logged, not gated
+    check(all(bool(d.keep.all()) for d in rec2[len(rec):]),
+          f"13c {arch}: the decode step dropped an assignment")
+    all_kept = torch.ones(MOE_BATCH, dtype=torch.bool, device=dev)
+    same_dispatch = torch.ones_like(all_kept)
+    for long, short in zip(rec, rec2[:len(rec)]):
+        a = long.keep.reshape(MOE_BATCH, MOE_PROMPT, -1)
+        b = short.keep.reshape(MOE_BATCH, MOE_PROMPT - 1, -1)
+        all_kept &= a.all(-1).all(-1) & b.all(-1).all(-1)
+        same_dispatch &= (a[:, :-1] == b).all(-1).all(-1) & a[:, -1].all(-1)
+    rel = (torch.linalg.vector_norm(dec - last, dim=-1)
+           / torch.linalg.vector_norm(last, dim=-1)).tolist()
+    same = (dec.argmax(-1) == last.argmax(-1)).tolist()
+    all_kept, gated = all_kept.tolist(), same_dispatch.tolist()
+    log(f"13c {arch}: prefill({MOE_PROMPT - 1}) + decode_step vs "
+        f"prefill({MOE_PROMPT}) by row: relative L2 of the last logits "
+        f"{[f'{r:.3e}' for r in rel]}, argmax equal {same}; every "
+        f"assignment kept in both prefills {all_kept}; the same assignments "
+        f"kept and the last token's all kept {gated} (gated where so)")
+    for b in range(MOE_BATCH):
+        check(not gated[b] or (same[b] and rel[b] < LM_CONSISTENCY_REL),
+              f"13c {arch}: row {b}, the same assignments kept: prefill + "
+              f"decode_step disagrees with prefill (relative L2 "
+              f"{rel[b]:.3e}, argmax equal {same[b]})")
+    del params
+    torch.cuda.empty_cache()
+
+    steps = sorted(step_s)
+    drop_log = (f"dropped share of the prefill's assignments by layer "
+                f"{[round(x, 5) for x in dropped]} (mean "
+                f"{sum(dropped) / len(dropped):.5f}, max {max(dropped):.5f})"
+                if dropped else "no MoE layer")
+    log(f"13c {arch}: {n} layers, d_model {cfg.d_model}, "
+        f"{tf.param_count(cfg):,} parameters ({tf.active_param_count(cfg):,} "
+        f"active a token) in {cfg.param_dtype}, drawn on the card in "
+        f"{init_s:.2f} s (peak {init_peak / 1e9:.2f} GB); prefill "
+        f"{MOE_BATCH} x {MOE_PROMPT} tokens in {prefill_s:.3f} s "
+        f"({MOE_BATCH * MOE_PROMPT / prefill_s:,.0f} tokens/s); "
+        f"flash_attention {launches} launches {routes}; {drop_log}; "
+        f"{MOE_DECODE} greedy decode steps, median "
+        f"{steps[len(steps) // 2] * 1e3:.2f} ms (min {steps[0] * 1e3:.2f}, "
+        f"max {steps[-1] * 1e3:.2f}); tokens per row "
+        f"{[[g[b] for g in generated] for b in range(MOE_BATCH)]}; peak "
+        f"memory from the prefill on {peak / 1e9:.2f} GB")
+    return dict(parameters=tf.param_count(cfg), init_s=init_s,
+                init_peak_bytes=init_peak, prefill_s=prefill_s,
+                launches=launches, routes=routes, dropped_share=dropped,
+                decode_ms=[t * 1e3 for t in step_s], peak_memory_bytes=peak,
+                consistency_rel_l2=rel, consistency_argmax_equal=same,
+                all_kept=all_kept, consistency_gated=gated)
+
+
+def serve_cli():
+    """13d: ``python -m repro_torch.launch.serve`` in a subprocess for each
+    arch at full width on the card, then the reduced default on the card
+    and on the CPU; each must serve 8/8 requests.  Returns each run's
+    figures, its tok/s as the CLI printed it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = [(f"{a} full", ["--no-reduced", "--arch", a]) for a in MOE_ARCHS]
+    runs += [("olmo-1b reduced", []),
+             ("olmo-1b reduced cpu", ["--torch-device", "cpu"])]
+    served = re.compile(r"served (\d+)/(\d+) requests, (\d+) tokens in "
+                        r"([0-9.]+)s \(([0-9.]+) tok/s\), (\d+) ticks")
+    out = {}
+    for label, args in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *args],
+            capture_output=True, text=True, env=env,
+            timeout=MOE_CLI_TIMEOUT_S, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"13d: python -m repro_torch.launch."
+              f"serve {' '.join(args)} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        m = served.fullmatch(lines[0]) if lines else None
+        check(m is not None and m.group(1) == m.group(2) == "8",
+              f"13d: python -m repro_torch.launch.serve {' '.join(args)} "
+              f"printed {proc.stdout[:500]!r}, not 'served 8/8 requests'")
+        out[label] = dict(tokens=int(m.group(3)), serve_s=float(m.group(4)),
+                          tok_s=float(m.group(5)), ticks=int(m.group(6)),
+                          process_s=wall, req0=lines[1].strip())
+        log(f"13d python -m repro_torch.launch.serve {' '.join(args)}: "
+            f"{lines[0]} (the process {wall:.1f} s)")
+    a, b = out["olmo-1b reduced"]["req0"], out["olmo-1b reduced cpu"]["req0"]
+    log(f"13d the reduced default (bf16) on the card and the CPU: req0 "
+        f"{'equal' if a == b else 'differs'}: {a} / {b}")
+    return out
+
+
+def moe_serving(dev):
+    """Phase 13; returns what it adds to the flash_attention record."""
+    t_phase = time.perf_counter()
+    shapes = moe_attention(dev)
+    torch.cuda.empty_cache()
+    layer = moe_layer(dev)
+    torch.cuda.empty_cache()
+    models = {arch: moe_model(dev, arch) for arch in MOE_ARCHS}
+    cli = serve_cli()
+    secs = time.perf_counter() - t_phase
+    log(f"13: phase 13 took {secs:.1f} s")
+    return {"flash_attention": dict(
+        max_abs_err_13a=max(r["max_abs_err"] for r in shapes),
+        shapes_13a=shapes, moe_layer_13b=layer,
+        launches_13c={a: m["launches"] for a, m in models.items()},
+        models_13c=models, cli_13d=cli, phase_13_s=secs)}
 
 
 if __name__ == "__main__":

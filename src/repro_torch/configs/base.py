@@ -34,7 +34,7 @@ class ArchConfig(Config):
     rope_theta: float = 10_000.0
     mrope: bool = False
 
-    # MoE
+    # MoE (the expert dimension is padded to a multiple of expert_pad_to)
     n_experts: int = 0
     top_k: int = 0
     n_shared_experts: int = 0
@@ -65,6 +65,15 @@ class ArchConfig(Config):
     @property
     def d_rec_actual(self) -> int:
         return self.d_rec or self.d_model
+
+    @property
+    def n_experts_padded(self) -> int:
+        """Experts padded to a multiple of ``expert_pad_to``; the padding
+        experts receive no tokens."""
+        if self.n_experts == 0:
+            return 0
+        p = self.expert_pad_to
+        return ((self.n_experts + p - 1) // p) * p
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Expanded per-layer block kinds, length n_layers."""

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-The port registers the architectures whose blocks it runs; the JAX
-package's other architectures raise ``KeyError`` naming ROADMAP A.6,
-where their port is queued.
+The port registers the architectures whose blocks it runs, in the
+reference's order; the JAX package's other architectures raise
+``KeyError`` naming ROADMAP A.6, where their port is queued.
 """
 from __future__ import annotations
 
@@ -12,6 +12,9 @@ from typing import Dict, Tuple
 from repro_torch.configs.base import ArchConfig
 
 _MODULES: Dict[str, str] = {
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 

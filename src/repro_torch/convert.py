@@ -186,8 +186,11 @@ def lm_params(ref_params: Mapping, cfg: ArchConfig,
               device: DeviceLike = "cuda") -> Dict:
     """The port's parameter tree for ``cfg`` from a reference tree
     (``repro.models.api.init_params``'s, its leaves as numpy arrays):
-    the same nested keys, every leaf's values, shape and type kept.
-    Raises if a leaf is missing, extra, or of another shape or type."""
+    the same nested keys, every leaf's values, shape and type kept, the
+    MoE experts with their padding experts (``[Ep, ...]``, ``Ep =
+    cfg.n_experts_padded``; the router keeps its ``E`` columns).  Raises
+    if a leaf is missing, extra, or of another shape or type: a tree
+    whose experts are not padded is refused."""
     dev = resolve_device(device)
     specs = transformer.param_specs(cfg)
     want = {path for path, _ in transformer.leaves(specs)}

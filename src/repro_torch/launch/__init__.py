@@ -1,1 +1,2 @@
-"""Process meshes for the port's sharded paths (:mod:`.mesh`)."""
+"""The port's launchers: process meshes for the sharded paths
+(:mod:`.mesh`) and the serving CLI (:mod:`.serve`)."""

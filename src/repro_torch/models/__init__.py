@@ -1,5 +1,7 @@
 """The language model of the port: recurrentgemma-9b's blocks (RG-LRU and
-local attention with a dense MLP), prefill, decode and the model API.
+local attention with a dense MLP), the dense and mixture-of-experts
+attention decoders (olmo-1b, granite-moe-3b-a800m, qwen2-moe-a2.7b;
+:mod:`.moe`), prefill, decode and the model API.
 
 Parameters and caches are plain nested dicts of tensors in the JAX
 package's layout (blocks stacked over pattern periods), so

@@ -1,5 +1,8 @@
 """Model API of the port (a port of :mod:`repro.models.api`'s
-decoder-only half).  Encoder–decoder models raise
+decoder-only half): recurrentgemma's hybrid, the dense decoders and the
+mixture-of-experts decoders (whose parameter trees hold the experts
+padded to ``cfg.n_experts_padded``, and whose ``forward`` returns the
+layers' summed aux loss).  Encoder–decoder models raise
 ``NotImplementedError`` (ROADMAP A.6)."""
 from __future__ import annotations
 

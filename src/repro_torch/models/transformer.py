@@ -1,16 +1,19 @@
-"""Decoder-only LM of the port: recurrentgemma's block kinds (``rglru``,
-``attn``, ``attn_local``, ``attn_global``) with a dense MLP (a port of
-:mod:`repro.models.transformer`).
+"""Decoder-only LM of the port: the block kinds ``rglru``, ``attn``,
+``attn_local`` and ``attn_global``, with a dense MLP or a mixture of
+experts after attention (a port of :mod:`repro.models.transformer`).
 
 Parameters are a nested dict of tensors in the reference's layout:
 layers grouped into pattern periods with each leaf stacked over periods
 (``params["blocks"]["p{i}_{kind}"]``), a remainder group
 (``params["rem"]["r{i}_{kind}"]``, recurrentgemma's 38 = 12·3 + 2), the
-tied embedding and the final norm.  Where the reference scans over
-periods, the port loops over them.
+tied embedding and the final norm.  An attention block of a ``moe``
+family config holds a ``moe`` subtree (router [D, E], experts padded to
+``cfg.n_experts_padded``, shared experts where ``n_shared_experts`` > 0)
+in place of ``mlp``.  Where the reference scans over periods, the port
+loops over them.
 
 Three entry points:
-  * :func:`forward`      — full-sequence logits (+ the MoE aux loss, 0)
+  * :func:`forward`      — full-sequence logits (+ the MoE aux loss)
   * :func:`prefill`      — forward that also fills the decode cache
   * :func:`decode_step`  — one token against the cache: the serve path
 
@@ -20,7 +23,8 @@ attention through :func:`repro_torch.kernels.flash_attention
 RG-LRU recurrence through :func:`repro_torch.kernels.rglru_scan
 .rglru_scan` where it calls ``rglru_scan_ref``.  The reference's
 ``use_pallas`` flag has no counterpart: the tensors' device chooses.
-MoE, mLSTM, sLSTM, M-RoPE and ``embeds`` inputs raise
+The MoE layer (:mod:`.moe`) is plain PyTorch, as the reference's is plain
+``jnp``.  mLSTM, sLSTM, M-RoPE and ``embeds`` inputs raise
 ``NotImplementedError`` (ROADMAP A.6).
 
 Types follow the reference op by op (see :mod:`.layers`).  A float32
@@ -32,7 +36,7 @@ product is full float32 only with TF32 off: the port leaves
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -43,6 +47,7 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_norm, apply_rope,
                                        decode_attention, einsum, einsum_f32,
                                        gated_mlp)
+from repro_torch.models.moe import moe_ffn
 
 Params = Dict[str, Any]
 
@@ -75,8 +80,6 @@ def check_supported(cfg: ArchConfig) -> None:
     missing = []
     if cfg.encdec:
         missing.append("encoder-decoder")
-    if cfg.family == "moe" or cfg.n_experts:
-        missing.append("MoE")
     if cfg.mrope:
         missing.append("M-RoPE")
     if cfg.input_mode != "tokens":
@@ -87,7 +90,7 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name or 'this config'}: {', '.join(missing)} not ported "
             f"yet (ROADMAP A.6); the port runs rglru and attention blocks "
-            f"with a dense MLP")
+            f"with a dense MLP or a mixture of experts")
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +101,22 @@ def _mlp_specs(cfg: ArchConfig) -> Dict[str, TensorSpec]:
     D, F, dt = cfg.d_model, cfg.d_ff, _dtype(cfg)
     return {"w_gate": TensorSpec((D, F), dt), "w_up": TensorSpec((D, F), dt),
             "w_down": TensorSpec((F, D), dt)}
+
+
+def _moe_specs(cfg: ArchConfig) -> Dict[str, TensorSpec]:
+    D, E, dt = cfg.d_model, cfg.n_experts, _dtype(cfg)
+    Fm = cfg.moe_d_ff or cfg.d_ff
+    Ep = cfg.n_experts_padded          # the padding experts get no tokens
+    s = {"router": TensorSpec((D, E), dt),
+         "w_gate": TensorSpec((Ep, D, Fm), dt),
+         "w_up": TensorSpec((Ep, D, Fm), dt),
+         "w_down": TensorSpec((Ep, Fm, D), dt)}
+    if cfg.n_shared_experts > 0:
+        Fs = Fm * cfg.n_shared_experts
+        s.update(shared_gate=TensorSpec((D, Fs), dt),
+                 shared_up=TensorSpec((D, Fs), dt),
+                 shared_down=TensorSpec((Fs, D), dt))
+    return s
 
 
 def _attn_specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -112,7 +131,9 @@ def _attn_specs(cfg: ArchConfig) -> Dict[str, Any]:
     if _norm_has_scale(cfg):
         s["ln1"] = TensorSpec((D,), dt)
         s["ln2"] = TensorSpec((D,), dt)
-    if cfg.d_ff > 0:
+    if cfg.family == "moe":
+        s["moe"] = _moe_specs(cfg)
+    elif cfg.d_ff > 0:
         s["mlp"] = _mlp_specs(cfg)
     return s
 
@@ -193,6 +214,22 @@ def param_count(cfg: ArchConfig) -> int:
     return sum(math.prod(s.shape) for _, s in leaves(param_specs(cfg)))
 
 
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters a token uses: a routed expert leaf counts top_k of its
+    n_experts_padded experts, the shared experts in full, the embedding
+    and lm_head not at all (the 6·N·D convention)."""
+    total = 0
+    for path, s in leaves(param_specs(cfg)):
+        name = "/".join(path)
+        if "embed" in name or "lm_head" in name:
+            continue
+        n = math.prod(s.shape)
+        if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down"):
+            n = n * cfg.top_k // max(cfg.n_experts_padded, 1)
+        total += n
+    return total
+
+
 def init_params(rng: Union[int, torch.Generator], cfg: ArchConfig,
                 device: DeviceLike = "cuda") -> Params:
     """Random initialisation by the reference's rules, drawn on ``device``
@@ -253,17 +290,28 @@ def _project_qkv(p: Params, h: torch.Tensor):
             einsum("bsd,dhe->bshe", h, p["wv"]))
 
 
-def _mlp(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if "mlp" not in p:
-        return x
+def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the residual stream: the mixture of experts
+    where the block has ``moe``, else the dense MLP where it has ``mlp``.
+    Returns (x_out, the MoE aux loss or None)."""
+    if "moe" not in p and "mlp" not in p:
+        return x, None
     h2 = apply_norm(cfg.norm_kind, x, p.get("ln2"))
+    if "moe" in p:
+        y, aux = moe_ffn(h2, p["moe"], n_experts=cfg.n_experts,
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + y, aux
     m = p["mlp"]
-    return x + gated_mlp(h2, m["w_gate"], m["w_up"], m["w_down"], act=cfg.act)
+    return x + gated_mlp(h2, m["w_gate"], m["w_up"], m["w_down"],
+                         act=cfg.act), None
 
 
 def _apply_attn_block(cfg: ArchConfig, kind: str, p: Params,
                       x: torch.Tensor, pos: torch.Tensor):
-    """Returns (x_out, (k, v)); k/v exposed for prefill caching."""
+    """Returns (x_out, aux loss or None, (k, v)); k/v exposed for prefill
+    caching."""
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     q, k, v = _project_qkv(p, h)
     q = apply_rope(q, pos, theta=cfg.rope_theta)
@@ -272,7 +320,8 @@ def _apply_attn_block(cfg: ArchConfig, kind: str, p: Params,
                           window=_window_for(cfg, kind),
                           softcap=cfg.attn_softcap)
     x = x + einsum("bshe,hed->bsd", att, p["wo"])
-    return _mlp(cfg, p, x), (k, v)
+    x, aux = _ffn(cfg, p, x)
+    return x, aux, (k, v)
 
 
 def _rglru_mix(cfg: ArchConfig, p: Params, x: torch.Tensor):
@@ -290,15 +339,17 @@ def _rglru_mix(cfg: ArchConfig, p: Params, x: torch.Tensor):
 def _apply_rglru_block(cfg: ArchConfig, p: Params,
                        x: torch.Tensor) -> torch.Tensor:
     x, _, _ = _rglru_mix(cfg, p, x)
-    return _mlp(cfg, p, x)
+    return _ffn(cfg, p, x)[0]
 
 
 def apply_block(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
+                pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x_out, the block's MoE aux loss or None)."""
     if kind in ATTN_KINDS:
-        return _apply_attn_block(cfg, kind, p, x, pos)[0]
+        return _apply_attn_block(cfg, kind, p, x, pos)[:2]
     if kind == "rglru":
-        return _apply_rglru_block(cfg, p, x)
+        return _apply_rglru_block(cfg, p, x), None
     raise _unported(kind)
 
 
@@ -358,12 +409,15 @@ def unembed(params: Params, cfg: ArchConfig, x: torch.Tensor
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits. Returns (logits [B,S,V] f32, aux_loss)."""
+    """Full-sequence logits. Returns (logits [B,S,V] f32, aux_loss: the
+    sum of the MoE layers' aux losses in layer order, 0 without MoE)."""
     x, pos = embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, kind, p in _layers(cfg, params):
-        x = apply_block(cfg, kind, p, x, pos)
-    return unembed(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                device=x.device)
+        x, a = apply_block(cfg, kind, p, x, pos)
+        if a is not None:
+            aux = aux + a
+    return unembed(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +502,7 @@ def _decode_attn(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor,
                            dtype=torch.int32, device=x.device)
     att = decode_attention(q, kc, vc, cache_len, softcap=cfg.attn_softcap)
     x = x + einsum("bshe,hed->bsd", att, p["wo"])
-    return _mlp(cfg, p, x), {"k": kc, "v": vc}
+    return _ffn(cfg, p, x)[0], {"k": kc, "v": vc}
 
 
 def _decode_rglru(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor
@@ -457,7 +511,8 @@ def _decode_rglru(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor
     y, st = rec.rglru_block_step(h[:, 0], rec.RGLRUState(c["h"], c["conv"]),
                                  p)
     x = x + y[:, None, :].to(x.dtype)
-    return _mlp(cfg, p, x), {"h": st.h, "conv": st.conv.to(c["conv"].dtype)}
+    return _ffn(cfg, p, x)[0], {"h": st.h,
+                                "conv": st.conv.to(c["conv"].dtype)}
 
 
 def _decode_block(cfg: ArchConfig, kind: str, p: Params, c: Params,
@@ -509,7 +564,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     rem: Params = {}
     for (group, _), key, kind, p in _layers(cfg, params):
         if kind in ATTN_KINDS:
-            x, (k, v) = _apply_attn_block(cfg, kind, p, x, pos)
+            x, _, (k, v) = _apply_attn_block(cfg, kind, p, x, pos)
             L = _cache_len_for(cfg, kind, max_seq)
             if S >= L:
                 # the ring holds the last L positions, aligned to pos % L
@@ -524,7 +579,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             c = {"k": kc.to(_dtype(cfg)), "v": vc.to(_dtype(cfg))}
         elif kind == "rglru":
             x, hs, r = _rglru_mix(cfg, p, x)
-            x = _mlp(cfg, p, x)
+            x = _ffn(cfg, p, x)[0]
             K = cfg.conv_width
             conv_state = torch.stack([r[:, S - K + 1 + i]
                                       for i in range(K - 1)], dim=1)

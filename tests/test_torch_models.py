@@ -1,6 +1,11 @@
-"""The port's recurrentgemma-9b model (configs, layers, the RG-LRU block,
+"""The port's language models (configs, layers, the RG-LRU block,
 forward, prefill, decode) against the JAX package at ``REDUCED`` sizes in
-float32, weights carried across with ``convert.lm_params``.
+float32, weights carried across with ``convert.lm_params``: every ported
+arch, recurrentgemma-9b (RG-LRU and local attention), olmo-1b (dense,
+non-parametric norm), granite-moe-3b-a800m and qwen2-moe-a2.7b (mixture
+of experts; :mod:`tests.test_torch_moe` holds the MoE layer itself).
+recurrentgemma-9b's cases keep the ids they had when it was the only
+arch; the others' ids start with the arch.
 
 Every call into the JAX package is pinned to its CPU backend at "highest"
 matmul precision (``tests/_torch_jax_ref.py``).  Tolerances, unless a
@@ -41,18 +46,37 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 ELEM = dict(rtol=1e-6, atol=1e-6)
 
 
-def _cfgs(dtype="float32"):
-    return (registry.get_config(ARCH, reduced=True).replace(
-        param_dtype=dtype), rreg.get_config(ARCH, reduced=True).replace(
+def _cases(*values, archs=registry.ARCH_IDS):
+    """Parameters (arch, *value) for every ported arch and value;
+    recurrentgemma-9b's ids are the value's alone, as before the other
+    archs were ported."""
+    out = []
+    for arch in archs:
+        for v in values:
+            v = v if isinstance(v, tuple) else (v,)
+            vid = "-".join(map(str, v))
+            out.append(pytest.param(arch, *v, id=vid if arch == ARCH
+                                    else f"{arch}-{vid}"))
+    return out
+
+
+def _cfgs(dtype="float32", arch=ARCH):
+    return (registry.get_config(arch, reduced=True).replace(
+        param_dtype=dtype), rreg.get_config(arch, reduced=True).replace(
         param_dtype=dtype))
 
 
-@pytest.fixture(scope="module")
-def model():
-    """(port cfg, reference cfg, reference params as numpy, port params)."""
-    cfg, rcfg = _cfgs()
-    rp = ref(lambda: rapi.init_params(jax.random.PRNGKey(0), rcfg))
-    return cfg, rcfg, rp, convert.lm_params(rp, cfg, "cpu")
+_MODELS = {}
+
+
+def _model(arch=ARCH):
+    """(port cfg, reference cfg, reference params as numpy, port params),
+    made once a test process."""
+    if arch not in _MODELS:
+        cfg, rcfg = _cfgs(arch=arch)
+        rp = ref(lambda: rapi.init_params(jax.random.PRNGKey(0), rcfg))
+        _MODELS[arch] = cfg, rcfg, rp, convert.lm_params(rp, cfg, "cpu")
+    return _MODELS[arch]
 
 
 def _toks(b, s, seed, vocab=256):
@@ -78,13 +102,14 @@ def _leaf(tree, path):
 # configs, specs, parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("reduced", [False, True])
-def test_configs_match_the_reference(reduced):
-    cfg = registry.get_config(ARCH, reduced=reduced)
-    rcfg = rreg.get_config(ARCH, reduced=reduced)
+@pytest.mark.parametrize("arch, reduced", _cases(False, True))
+def test_configs_match_the_reference(arch, reduced):
+    cfg = registry.get_config(arch, reduced=reduced)
+    rcfg = rreg.get_config(arch, reduced=reduced)
     assert cfg.to_dict() == rcfg.to_dict()
     assert cfg.layer_kinds() == rcfg.layer_kinds()
     assert cfg.d_rec_actual == rcfg.d_rec_actual
+    assert cfg.n_experts_padded == rcfg.n_experts_padded
     assert tf.group_layout(cfg) == rtf.group_layout(rcfg)
     assert ArchConfig.from_json(cfg.to_json()) == cfg
 
@@ -96,16 +121,17 @@ def test_full_config_layout():
     assert kinds.count("rglru") == 26 and kinds.count("attn") == 12
 
 
-@pytest.mark.parametrize("arch", [a for a in rreg.ARCH_IDS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in rreg.ARCH_IDS
+                                  if a not in registry.ARCH_IDS])
 def test_other_architectures_are_not_ported_yet(arch):
     with pytest.raises(KeyError, match="ROADMAP A.6"):
         registry.get_config(arch)
 
 
-@pytest.mark.parametrize("reduced", [False, True])
-def test_param_and_cache_specs_match_the_reference(reduced):
-    cfg = registry.get_config(ARCH, reduced=reduced)
-    rcfg = rreg.get_config(ARCH, reduced=reduced)
+@pytest.mark.parametrize("arch, reduced", _cases(False, True))
+def test_param_and_cache_specs_match_the_reference(arch, reduced):
+    cfg = registry.get_config(arch, reduced=reduced)
+    rcfg = rreg.get_config(arch, reduced=reduced)
     for mine, theirs in ((tf.param_specs(cfg), ref(rtf.param_specs, rcfg)),
                          (tf.cache_specs(cfg, 2, 5000),
                           ref(rtf.cache_specs, rcfg, 2, 5000)),
@@ -119,6 +145,7 @@ def test_param_and_cache_specs_match_the_reference(reduced):
                for path, s in tf.leaves(mine)}
         assert got == want
     assert tf.param_count(cfg) == ref(rtf.param_count, rcfg)
+    assert tf.active_param_count(cfg) == ref(rtf.active_param_count, rcfg)
 
 
 def test_full_size_parameter_count():
@@ -154,9 +181,9 @@ def test_init_params_follow_the_reference_rules():
     assert abs(float(blk["w_gate"].float().std()) / want - 1) < 0.1
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lm_params_carries_every_leaf_bit_for_bit(dtype):
-    cfg, rcfg = _cfgs(dtype)
+@pytest.mark.parametrize("arch, dtype", _cases("float32", "bfloat16"))
+def test_lm_params_carries_every_leaf_bit_for_bit(arch, dtype):
+    cfg, rcfg = _cfgs(dtype, arch)
     rp = ref(lambda: rapi.init_params(jax.random.PRNGKey(1), rcfg))
     p = convert.lm_params(rp, cfg, "cpu")
     for path, x in tf.leaves(p):
@@ -167,17 +194,20 @@ def test_lm_params_carries_every_leaf_bit_for_bit(dtype):
     rp["embed"] = rp["embed"][:, :-1]
     with pytest.raises(ValueError, match="embed"):
         convert.lm_params(rp, cfg, "cpu")
-    del rp["final_norm"]
+    *parents, last = max(path for path, _ in tf.leaves(p))
+    del _leaf(rp, parents)[last]
     with pytest.raises(ValueError, match="missing"):
         convert.lm_params(rp, cfg, "cpu")
 
 
 @pytest.mark.parametrize("change, what", [
     (dict(block_pattern=("mlstm",)), "mlstm"),
-    (dict(family="moe", n_experts=4, top_k=2), "MoE"),
     (dict(mrope=True), "M-RoPE"),
     (dict(input_mode="embeds"), "embeds"),
-    (dict(encdec=True, n_enc_layers=1, n_dec_layers=1), "encoder-decoder")])
+    (dict(encdec=True, n_enc_layers=1, n_dec_layers=1), "encoder-decoder")],
+    # the ids the cases had beside the MoE case (change1), ported since
+    ids=["change0-mlstm", "change2-M-RoPE", "change3-embeds",
+         "change4-encoder-decoder"])
 def test_blocks_not_ported_yet_raise(change, what):
     cfg = registry.get_config(ARCH, reduced=True).replace(**change)
     with pytest.raises(NotImplementedError, match=what):
@@ -248,8 +278,8 @@ def test_causal_conv_full_and_step():
     np.testing.assert_array_equal(gb.numpy(), nb)
 
 
-def test_rglru_gates_block_and_step(model):
-    cfg, _, rp, p = model
+def test_rglru_gates_block_and_step():
+    cfg, _, rp, p = _model()
     rb = {k: v[0] for k, v in rp["blocks"]["p0_rglru"].items()
           if k != "mlp"}
     pb = tf.take(p["blocks"]["p0_rglru"], 0)
@@ -280,23 +310,29 @@ def test_rglru_gates_block_and_step(model):
 # the model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("s", [8, 24, 40])
-def test_forward(model, s):
-    cfg, rcfg, rp, p = model
+@pytest.mark.parametrize("arch, s", _cases(8, 24, 40))
+def test_forward(arch, s):
+    """Logits and the aux loss (the MoE layers' sum; 0 without MoE)."""
+    cfg, rcfg, rp, p = _model(arch)
     toks = _toks(2, s, s)
-    want, _ = ref(rtf.forward, rp, rcfg, {"tokens": toks}, remat=False)
+    want, want_aux = ref(rtf.forward, rp, rcfg, {"tokens": toks},
+                         remat=False)
     got, aux = api.forward(p, cfg, {"tokens": _t(toks)})
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
     _close(got, want)
+    _close(aux, want_aux)
+    assert (float(aux) == 0.0) == (cfg.family != "moe")
 
 
-@pytest.mark.parametrize("s, max_seq", [(8, 32), (16, 32), (24, 32),
-                                        (40, 48), (8, 12), (20, 12)])
-def test_prefill_logits_and_cache(model, s, max_seq):
-    """Prompts shorter than, as long as and longer than the 16-token
-    window, and a cache shorter than the window: the ring's roll and the
-    conv state match the reference's."""
-    cfg, rcfg, rp, p = model
+@pytest.mark.parametrize("arch, s, max_seq", _cases(
+    (8, 32), (16, 32), (24, 32), (40, 48), (8, 12), (20, 12)))
+def test_prefill_logits_and_cache(arch, s, max_seq):
+    """Prompts shorter than, as long as and longer than recurrentgemma's
+    16-token window, and a cache shorter than the window: the ring's roll
+    and the conv state match the reference's (a full-attention cache
+    shorter than the prompt keeps its last max_seq positions, as the
+    reference's does)."""
+    cfg, rcfg, rp, p = _model(arch)
     toks = _toks(2, s, s + max_seq)
     want, wcache = ref(rtf.prefill, rp, rcfg, {"tokens": toks},
                        max_seq=max_seq)
@@ -311,12 +347,13 @@ def test_prefill_logits_and_cache(model, s, max_seq):
         _close(leaf, _leaf(wcache, path))
 
 
-@pytest.mark.parametrize("s", [12, 24])
-def test_prefill_then_decode_equals_prefill_and_the_reference(model, s):
+@pytest.mark.parametrize("arch, s", _cases(12, 24))
+def test_prefill_then_decode_equals_prefill_and_the_reference(arch, s):
     """prefill(S-1) + decode_step(token S-1) ≡ prefill(S) at position S-1
-    (tests/test_models.py::test_arch_decode_consistency's bar, 5e-5), and
-    the decode step equals the reference's."""
-    cfg, rcfg, rp, p = model
+    (tests/test_models.py::test_arch_decode_consistency's bar, 5e-5; no
+    MoE assignment is dropped at these sizes), and the decode step equals
+    the reference's."""
+    cfg, rcfg, rp, p = _model(arch)
     toks = _toks(2, s, s + 1)
     full, _ = tf.prefill(p, cfg, {"tokens": _t(toks)}, max_seq=s)
     _, cache = tf.prefill(p, cfg, {"tokens": _t(toks[:, :-1])}, max_seq=s)
@@ -333,10 +370,19 @@ def test_prefill_then_decode_equals_prefill_and_the_reference(model, s):
         _close(leaf, _leaf(rnew, path))
 
 
-def test_greedy_decode_tokens(model):
+def test_greedy_decode_tokens():
     """A prompt past the window, then 10 greedy steps: the same tokens as
     the reference, logits within the bar at every step."""
-    cfg, rcfg, rp, p = model
+    _greedy(ARCH)
+
+
+@pytest.mark.parametrize("arch", [a for a in registry.ARCH_IDS if a != ARCH])
+def test_greedy_decode_tokens_of_each_arch(arch):
+    _greedy(arch)
+
+
+def _greedy(arch):
+    cfg, rcfg, rp, p = _model(arch)
     toks = _toks(2, 20, 3)
     max_seq = 40
     logits, cache = tf.prefill(p, cfg, {"tokens": _t(toks)}, max_seq)
