@@ -173,13 +173,45 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    assignments both ways (13c); ``python -m repro_torch.launch.serve
    --no-reduced`` for each of the three in a subprocess, then the reduced
    default on the card and with ``--torch-device cpu``, each serving 8/8
-   requests (13d).  The phase logs its wall.
+   requests (13d).  The phase logs its wall;
+14. the last six architectures, after phase 13, each model in bf16 with
+   random weights from the seed and freed before the next:
+   ``flash_attention`` against ``blocked_attention`` within ``FLASH_TOL``
+   on the tensor cores at their attention shapes (gemma2-2b's soft-capped
+   GQA 8:4 at head_dim 256 over 5000 positions, window 4096 and 0;
+   granite-8b's 32:8, llama3-405b's 128:8 and qwen2-vl-7b's 28:4 at 128
+   over 2000; seamless's non-causal 16:16 at 64 over 2000, and its
+   cross-attention of 64 queries on 2000 keys), timed beside the bound
+   and the PyTorch call that computes the same function:
+   ``scaled_dot_product_attention``, or at the soft-capped shapes
+   ``flex_attention`` compiled with a tanh ``score_mod`` (14a); each of
+   the six at ``REDUCED`` in float32 on the card and the CPU within
+   ``LM_REDUCED_TOL`` (seamless: ``encode``, ``forward``, 4
+   ``decode_step``s; 14b); at full width (llama3-405b at 4 of its 126
+   layers, the one cut, logged), parameter counts held against the
+   configs' fields: gemma2-2b 2 x 5000 tokens into a 5120-token cache
+   (the local rings wrap), the others 2 x 2000 into 2048 (qwen2-vl-7b on
+   ``embeds`` with Qwen2-VL's ``positions3``: a text prefix, then a 40 x
+   25 patch grid), 16 greedy decode steps, flash_attention 26 / 36 / 4 /
+   28 / 0 launches a prefill on the tensor cores, ``prefill(S-1) +
+   decode_step`` against ``prefill(S)`` per row, xlstm-125m's host loops
+   over S timed alone; seamless-m4t-medium's ``encode`` of 2 x 2000
+   frames (12 launches), ``init_cache_from_encoder`` with a 64-token
+   target cache and 16 greedy ``decode_step``s, each against a
+   teacher-forced ``forward`` on the same tokens (14c);
+   ``python -m repro_torch.launch.serve --no-reduced`` for gemma2-2b,
+   granite-8b and xlstm-125m in a subprocess each (8/8 requests), the
+   CLI's refusal of qwen2-vl-7b and seamless-m4t-medium with the
+   reference's message, and a full-width qwen2-vl-7b ``ServingEngine``
+   of 2 slots answering 2 requests through the ``embeds`` path (14d).
+   The phase logs its wall.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -391,10 +423,14 @@ MOE_BATCH = 2
 MOE_PROMPT = 2000
 MOE_MAX_SEQ = 2048
 MOE_DECODE = 16
-#: 13a: attention's (B, S, Hq, Hkv, head_dim) in granite-moe, and in
-#: qwen2-moe and olmo-1b; full causal (window 0)
-MOE_ATTN_SHAPES = ((MOE_BATCH, MOE_PROMPT, 24, 8, 64),
-                   (MOE_BATCH, MOE_PROMPT, 16, 16, 128))
+#: 13a: attention in granite-moe, and in qwen2-moe and olmo-1b, full
+#: causal, as rows of (label, B, S, T, Hq, Hkv, head_dim, causal, window,
+#: softcap), NEW_ATTN_SHAPES' layout
+MOE_ATTN_SHAPES = (
+    ("granite-moe", MOE_BATCH, MOE_PROMPT, MOE_PROMPT, 24, 8, 64, True, 0,
+     0.0),
+    ("qwen2-moe, olmo-1b", MOE_BATCH, MOE_PROMPT, MOE_PROMPT, 16, 16, 128,
+     True, 0, 0.0))
 #: 13b: one full-width MoE layer (qwen2-moe's, 588 M parameters in f32) on
 #: 512 tokens, card against CPU
 MOE_LAYER_ARCH = "qwen2-moe-a2.7b"
@@ -409,6 +445,61 @@ F32_U = 2.0 ** -24
 SOFTMAX_ULPS = 16
 #: 13d: one CLI run's limit
 MOE_CLI_TIMEOUT_S = 600
+#: phase 14, the last six architectures at full width in bf16, random
+#: weights from the seed, each model freed before the next: each decoder
+#: through 13c's run, MOE_BATCH prompts of 2000 tokens into a 2048-token
+#: cache, then MOE_DECODE greedy decode steps; seamless on NEW_BATCH rows
+NEW_ARCHS = ("gemma2-2b", "granite-8b", "llama3-405b", "qwen2-vl-7b",
+             "xlstm-125m")
+NEW_BATCH = MOE_BATCH
+NEW_PROMPT = 2000
+NEW_MAX_SEQ = 2048
+#: gemma2-2b's prompts: 5000 tokens into a 5120-token cache, so that the
+#: 13 local layers' 4096-slot rings wrap (its sliding_window)
+GEMMA_PROMPT = 5000
+GEMMA_MAX_SEQ = 5120
+#: llama3-405b at full width and 4 of its 126 layers, the one cut: the
+#: whole model holds ~810 GB in bf16, ten times the card's 80 GB
+LLAMA_ARCH = "llama3-405b"
+LLAMA_LAYERS = 4
+#: qwen2-vl-7b's prompt as Qwen2-VL lays out positions3: a 1000-token
+#: text prefix with its three axes equal, then one image of 40 x 25
+#: patches (temporal fixed, height and width the patch's row and column,
+#: each offset past the text); decode continues one past the largest
+VL_ARCH = "qwen2-vl-7b"
+VL_TEXT = 1000
+VL_GRID = (40, 25)
+#: seamless-m4t-medium: src_embeds [2, 2000, 1024] through encode, a
+#: 64-token target cache from init_cache_from_encoder, 16 greedy
+#: decode_steps from token 0
+SEAMLESS_ARCH = "seamless-m4t-medium"
+SEAMLESS_SRC = 2000
+SEAMLESS_TGT = 64
+SEAMLESS_DECODE = 16
+#: 14c: flash_attention launches a prefill (every attention layer:
+#: gemma2's 13 local + 13 global, xlstm-125m has none) and an encode
+NEW_LAUNCHES = {"gemma2-2b": 26, "granite-8b": 36, "llama3-405b": 4,
+                "qwen2-vl-7b": 28, "xlstm-125m": 0}
+SEAMLESS_ENCODE_LAUNCHES = 12
+#: 14a: flash_attention at the six models' attention shapes, bf16:
+#: (label, B, S, T, Hq, Hkv, head_dim, causal, window, softcap)
+NEW_ATTN_SHAPES = (
+    ("gemma2-2b local", 2, 5000, 5000, 8, 4, 256, True, 4096, 50.0),
+    ("gemma2-2b global", 2, 5000, 5000, 8, 4, 256, True, 0, 50.0),
+    ("granite-8b", 2, 2000, 2000, 32, 8, 128, True, 0, 0.0),
+    ("llama3-405b", 2, 2000, 2000, 128, 8, 128, True, 0, 0.0),
+    ("qwen2-vl-7b", 2, 2000, 2000, 28, 4, 128, True, 0, 0.0),
+    ("seamless encoder", 2, 2000, 2000, 16, 16, 64, False, 0, 0.0),
+    ("seamless cross", 2, 64, 2000, 16, 16, 64, False, 0, 0.0))
+#: 14d: the CLI at full width for the token archs; the ServingEngine of
+#: qwen2-vl-7b (an embeds arch the CLI refuses): 2 slots, 2 requests of
+#: 8 + 8 tokens
+NEW_CLI_ARCHS = ("gemma2-2b", "granite-8b", "xlstm-125m")
+NEW_CLI_REFUSED = ("qwen2-vl-7b", "seamless-m4t-medium")
+VL_SERVE_SLOTS = 2
+VL_SERVE_REQUESTS = 2
+VL_SERVE_PROMPT = 8
+VL_SERVE_NEW = 8
 
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
                 ("rtx3090_instant", 0.100))
@@ -709,6 +800,8 @@ def main() -> int:
     later = list(extras.items()) + list(sharded(dev, mix_11b).items())
     torch.cuda.empty_cache()
     later += list(moe_serving(dev).items())
+    torch.cuda.empty_cache()
+    later += list(new_archs(dev).items())
     for name, extra in later:
         rec = by_name[name]
         err = max(v for k, v in extra.items() if k.startswith("max_abs_err"))
@@ -3106,22 +3199,26 @@ def flash_cuda_cores_ms(q, k, v, kw, want):
                              f"q {list(q.shape)} {q.dtype} {kw}"))
 
 
-def sdpa_ms(q, k, v, window):
+def sdpa_ms(q, k, v, window, causal=True):
     """``scaled_dot_product_attention``'s time on the same function: a
     causal sliding-window boolean mask (``is_causal`` where the window is
-    0), the KV head shared by the group (``enable_gqa``; where this
-    PyTorch lacks it, K and V expanded to every head before the clock).
-    Returns (ms, largest difference from flash_attention's output, how
-    the group's KV head was shared)."""
+    0; no mask where ``causal`` is False and the window 0), the KV head
+    shared by the group (``enable_gqa``; where this PyTorch lacks it, K
+    and V expanded to every head before the clock).  Returns (ms, largest
+    difference from flash_attention's output, how the group's KV head was
+    shared)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     s, t = q.shape[1], k.shape[1]
     if window > 0:
+        check(causal, "sdpa_ms: a window without causal masking")
         pos_q = torch.arange(s, device=q.device)[:, None]
         pos_k = torch.arange(t, device=q.device)[None, :]
         masking = dict(attn_mask=(pos_k <= pos_q) & (pos_k > pos_q - window))
-    else:
+    elif causal:
         masking = dict(is_causal=True)
+    else:
+        masking = {}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     g = q.shape[2] // k.shape[2]
     try:
@@ -3136,8 +3233,51 @@ def sdpa_ms(q, k, v, window):
         return F.scaled_dot_product_attention(qt, kt, vt, **masking, **extra)
     ms = time_ms(run, 5)
     diff = float((run().transpose(1, 2).float() - flash_attention(
-        q, k, v, window=window).float()).abs().max())
+        q, k, v, causal=causal, window=window).float()).abs().max())
     return ms, diff, how
+
+
+def flex_ms(q, k, v, window, causal, cap):
+    """``flex_attention``'s time on soft-capped attention, compiled as it
+    is meant to run (its Triton kernel built here by Inductor in this
+    process, its caches under build/): the cap a ``score_mod`` on the
+    scaled score, ``cap * tanh(score / cap)`` as the reference's
+    ``_softcap``, the causal mask and the window a block mask, the KV head
+    shared by the group (``enable_gqa``).  Returns (ms, largest
+    difference from flash_attention's output, how it was called)."""
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    # no pool of compile workers: the script stops every process it starts
+    inductor_config.compile_threads = 1
+    s, t = q.shape[1], k.shape[1]
+
+    def soft_cap(score, b, h, i, j):
+        return cap * torch.tanh(score / cap)
+
+    def keep(b, h, i, j):
+        seen = j <= i
+        return seen & (j > i - window) if window > 0 else seen
+
+    mask = (create_block_mask(keep, None, None, s, t, device=q.device)
+            if causal else None)
+    compiled = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def run():
+        return compiled(qt, kt, vt, score_mod=soft_cap, block_mask=mask,
+                        enable_gqa=True)
+    ms = time_ms(run, 5)
+    diff = float((run().transpose(1, 2).float() - flash_attention(
+        q, k, v, causal=causal, window=window,
+        softcap=cap).float()).abs().max())
+    masking = ("no mask" if not causal else "causal block mask"
+               if window == 0 else f"causal block mask, window {window}")
+    return ms, diff, f"compiled, tanh score_mod, {masking}, enable_gqa"
 
 
 def lm_kernels(dev):
@@ -3393,8 +3533,9 @@ def lm_serving(dev):
     torch.cuda.empty_cache()
 
     # -- 8c. the reduced model in float32, card against CPU ------------------
-    red = lm_reduced(dev)
-    cpu = lm_reduced(torch.device("cpu"))
+    seeds = (SEED + 43, SEED + 47)
+    red = arch_reduced(dev, LM_ARCH, seeds, serve=True)
+    cpu = arch_reduced(torch.device("cpu"), LM_ARCH, seeds, serve=True)
     worst = {}
     for key in ("forward", "prefill", "decode"):
         a, b = red[key], cpu[key]
@@ -3419,36 +3560,6 @@ def lm_serving(dev):
     for r, n in routes.items():
         flash_rec["routes"][r]["launches"] = n
     return [scan_rec, flash_rec]
-
-
-def lm_reduced(dev):
-    """Phase 8c on ``dev``: recurrentgemma-9b's REDUCED config in float32,
-    weights drawn on the CPU from one seed; forward over 40 tokens (past
-    the 16-token window), prefill(39) + decode_step, and a 2-slot
-    ServingEngine answering 3 requests."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models import api
-    from repro_torch.models import transformer as tf
-    from repro_torch.serve.engine import Request, ServingEngine
-    cfg = get_config(LM_ARCH, reduced=True).replace(param_dtype="float32")
-    params = tf.map_tree(lambda _, x: x.to(dev),
-                         api.init_params(SEED + 43, cfg, "cpu"))
-    rng = np.random.default_rng(SEED + 47)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)),
-                           dtype=torch.int32, device=dev)
-    logits, _ = api.forward(params, cfg, {"tokens": toks})
-    pre, cache = tf.prefill(params, cfg, {"tokens": toks[:, :-1]},
-                            max_seq=48)
-    dec, _ = api.decode_step(params, cfg, cache, {"tokens": toks[:, -1:],
-                                                  "pos": 39})
-    eng = ServingEngine(cfg, params, n_slots=2, max_seq=32, device=dev)
-    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32),
-                    max_new_tokens=6) for i, n in enumerate((5, 8, 3))]
-    for r in reqs:
-        eng.submit(r)
-    eng.run()
-    return dict(forward=logits.cpu(), prefill=pre.cpu(),
-                decode=dec[:, 0].cpu(), serve=[r.generated for r in reqs])
 
 
 def near(got, want, rel):
@@ -4213,48 +4324,57 @@ def sharded(dev, mix_11b):
 # the mixture-of-experts decoders and the serving CLI
 # ---------------------------------------------------------------------------
 
-def moe_attention(dev):
-    """13a: flash_attention against blocked_attention at the new models'
-    shapes (full causal, bf16), each on the tensor cores, timed beside
-    scaled_dot_product_attention.  Returns a record a shape."""
+def attention_at(dev, phase, shapes, seed):
+    """``phase``'s flash_attention (13a, 14a) against blocked_attention at
+    the models' attention shapes in bf16, each on the tensor cores, timed
+    beside its bound and beside the PyTorch call that computes the same
+    function: scaled_dot_product_attention, or where the scores are
+    soft-capped flex_attention.  A row of ``shapes`` is (label, B, S, T,
+    Hq, Hkv, head_dim, causal, window, softcap).  Returns a record a
+    shape."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.layers import blocked_attention
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 53)
-    kw = dict(causal=True, window=0, softcap=0.0)
+    gen.manual_seed(seed)
     out = []
-    for b, s, hq, hkv, d in MOE_ATTN_SHAPES:
-        q, k, v = (torch.randn((b, s, h, d), generator=gen,
+    for label, b, s, t, hq, hkv, d, causal, window, cap in shapes:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen,
                                device=dev).to(torch.bfloat16)
-                   for h in (hq, hkv, hkv))
+                   for n, h in ((s, hq), (t, hkv), (t, hkv)))
+        kw = dict(causal=causal, window=window, softcap=cap)
         err, rel = flash_check(q, k, v, kw)
-        check(rel <= FLASH_MAIN_REL_L2, f"13a: flash_attention at q "
-              f"{list(q.shape)}: relative L2 difference {rel:.3e} from "
-              f"blocked_attention, above {FLASH_MAIN_REL_L2:g}")
+        check(rel <= FLASH_MAIN_REL_L2, f"{phase} {label}: flash_attention's "
+              f"relative L2 difference {rel:.3e} from blocked_attention, "
+              f"above {FLASH_MAIN_REL_L2:g}")
         ms = time_ms(lambda: flash_attention(q, k, v, **kw), 20)
         plain_ms = time_ms(lambda: blocked_attention(q, k, v, **kw), 1)
-        lib_ms, lib_diff, lib_how = sdpa_ms(q, k, v, 0)
-        pairs = attention_pairs(s, s, 0)
+        if cap == 0.0:
+            lib_ms, lib_diff, lib_how = sdpa_ms(q, k, v, window, causal)
+            call = f"scaled_dot_product_attention, {lib_how}"
+        else:
+            lib_ms, lib_diff, lib_how = flex_ms(q, k, v, window, causal, cap)
+            call = f"flex_attention, {lib_how}"
+        pairs = attention_pairs(s, t, window, causal)
         flops = 4 * d * pairs * b * hq
         ops_ms = flops / BF16_OPS_PER_S * 1e3
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
-        log(f"13a flash_attention at q {list(q.shape)} k/v {list(k.shape)} "
-            f"bf16, full causal, tensor cores: kernel {ms:.4f} ms, "
+        log(f"{phase} {label}: flash_attention at q {list(q.shape)} k/v "
+            f"{list(k.shape)} bf16, causal {causal}, window {window}, "
+            f"softcap {cap:g}, tensor cores: kernel {ms:.4f} ms, "
             f"{bound / ms:.1%} of the bound {bound:.4f} ms ({pairs:,} pairs "
             f"per head, {flops:.4e} FLOPs at the bf16 tensor rate; bytes "
             f"{bytes_ms:.4f} ms); largest difference from blocked_attention "
-            f"{err:.3e}, relative L2 {rel:.3e}; scaled_dot_product_attention "
-            f"(is_causal, {lib_how}) {lib_ms:.4f} ms, {lib_ms / ms:.2f}x the "
-            f"kernel (largest difference {lib_diff:.3e}); plain "
-            f"{plain_ms:.3f} ms")
+            f"{err:.3e}, relative L2 {rel:.3e}; {call}: {lib_ms:.4f} ms, "
+            f"{lib_ms / ms:.2f}x the kernel (largest difference "
+            f"{lib_diff:.3e}); plain {plain_ms:.3f} ms")
         out.append(dict(
-            shape=[list(q.shape), list(k.shape)], window=0, ms=ms,
+            label=label, shape=[list(q.shape), list(k.shape)],
+            causal=causal, window=window, softcap=cap, ms=ms,
             plain_ms=plain_ms, bound_ms=bound,
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            library_ms=lib_ms, library_call=(
-                f"scaled_dot_product_attention, is_causal, {lib_how}"),
+            library_ms=lib_ms, library_call=call,
             library_max_abs_diff=lib_diff, max_abs_err=err, rel_l2=rel,
             pairs_per_head=pairs, flops=flops))
         del q, k, v
@@ -4344,35 +4464,44 @@ def moe_layer(dev):
                 cpu_s=cpu_s)
 
 
-def moe_model(dev, arch):
-    """13c for one arch at full width and depth in bf16: the prefill (its
-    flash_attention launches, every MoE layer's dropped share), 16 greedy
-    decode steps, and prefill(S-1) + decode_step against prefill(S) on the
-    rows that kept the same assignments in both (below).  Returns its
-    figures."""
-    from repro_torch.configs.registry import get_config
+def serve_model(dev, phase, arch, cfg, seed, prompt, max_seq, note="",
+                probe=None):
+    """``phase``'s run (13c, 14c) of one decoder at full width in bf16,
+    weights drawn on the card from ``seed``: a prefill of MOE_BATCH
+    prompts of ``prompt`` positions into a ``max_seq``-token cache (its
+    flash_attention launches, once an attention layer and all on the
+    tensor cores; each MoE layer's dropped share), MOE_DECODE greedy
+    decode steps, and prefill(S-1) + decode_step against prefill(S):
+    relative L2 of the last logits within LM_CONSISTENCY_REL and argmax
+    equal on every row that kept the same expert assignments both ways
+    (below; every row of a model without MoE layers).  ``note`` goes into
+    the log; ``probe(params, batch)``, where given, runs before the
+    weights are freed and returns (a note for the log, its figures).
+    Returns the figures."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import api, moe
     from repro_torch.models import transformer as tf
-    cfg = get_config(arch)
-    n = cfg.n_layers
+    B, s = MOE_BATCH, prompt
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    n_moe = cfg.n_layers if cfg.family == "moe" else 0
+    n_params = tf.param_count(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = api.init_params(SEED + 67, cfg, dev)
+    params = api.init_params(seed, cfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated(dev)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 71)
-    toks = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT),
-                         generator=gen, device=dev, dtype=torch.int32)
+    gen.manual_seed(seed + 4)
+    batch, p3_next = new_batch(cfg, B, s, gen, dev)
     # warm-up: cuBLAS handles and every kernel's first launch
-    warm = min(64, MOE_PROMPT - 1)
-    _, c = tf.prefill(params, cfg, {"tokens": toks[:, :warm]},
-                      max_seq=MOE_MAX_SEQ)
-    api.decode_step(params, cfg, c, {"tokens": toks[:, warm:warm + 1],
-                                     "pos": warm})
+    warm = 64
+    _, c = tf.prefill(params, cfg, part(batch, slice(warm)),
+                      max_seq=max_seq)
+    api.decode_step(params, cfg, c, step_batch(
+        cfg, params, torch.zeros(B, dtype=torch.long, device=dev), warm,
+        warm))
     del c
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4380,49 +4509,55 @@ def moe_model(dev, arch):
     kfa.reset_launches()
     with moe.record_dispatch() as rec:
         t0 = time.perf_counter()
-        logits, cache = tf.prefill(params, cfg, {"tokens": toks},
-                                   max_seq=MOE_MAX_SEQ)
+        logits, cache = tf.prefill(params, cfg, batch, max_seq=max_seq)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
     launches = flash_attention.launches
     routes = dict(flash_attention.launches_by_route)
-    check(tuple(logits.shape) == (MOE_BATCH, MOE_PROMPT, cfg.vocab)
-          and logits.dtype == torch.float32, f"13c {arch}: prefill logits "
-          f"{logits.dtype}{tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), f"13c {arch}: prefill logits "
-          f"not finite")
-    check(launches == n and routes[kfa.TENSOR_CORES] == n, f"13c {arch}: a "
-          f"prefill launched flash_attention {launches} times {routes}, not "
-          f"once a layer ({n}) on the tensor cores")
-    check(len(rec) == (n if cfg.family == "moe" else 0), f"13c {arch}: "
-          f"{len(rec)} MoE layers ran")
+    check(tuple(logits.shape) == (B, s, cfg.vocab)
+          and logits.dtype == torch.float32, f"{phase} {arch}: prefill "
+          f"logits {logits.dtype}{tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{phase} {arch}: prefill "
+          f"logits not finite")
+    if cfg.final_softcap > 0:
+        check(float(logits.abs().max()) <= cfg.final_softcap,
+              f"{phase} {arch}: a logit above the final soft-cap")
+    check(launches == n_attn and routes[kfa.TENSOR_CORES] == n_attn,
+          f"{phase} {arch}: a prefill launched flash_attention {launches} "
+          f"times {routes}, not once an attention layer ({n_attn}) on the "
+          f"tensor cores")
+    check(len(rec) == n_moe, f"{phase} {arch}: {len(rec)} MoE layers ran, "
+          f"not {n_moe}")
     dropped = [1.0 - float(d.keep.float().mean()) for d in rec]
+    rings = sorted({tuple(c["k"].shape) for key, c in cache["blocks"].items()
+                    if "attn" in key})
     last = logits[:, -1].clone()
     del logits
     nxt = last.argmax(-1)
     generated, step_s = [], []
     for i in range(MOE_DECODE):
         t0 = time.perf_counter()
-        lg, cache = api.decode_step(params, cfg, cache, {
-            "tokens": nxt[:, None].to(torch.int32), "pos": MOE_PROMPT + i})
+        lg, cache = api.decode_step(params, cfg, cache, step_batch(
+            cfg, params, nxt, s + i, None if p3_next is None
+            else p3_next + i))
         nxt = lg[:, 0].argmax(-1)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        check(bool(torch.isfinite(lg).all()), f"13c {arch}: decode step {i}: "
-              f"logits not finite")
+        check(bool(torch.isfinite(lg).all()), f"{phase} {arch}: decode step "
+              f"{i}: logits not finite")
         generated.append(nxt.tolist())
     del cache, lg
-    check(flash_attention.launches == launches, f"13c {arch}: decode "
+    check(flash_attention.launches == launches, f"{phase} {arch}: decode "
           f"launched flash_attention")
     peak = torch.cuda.max_memory_allocated(dev)
 
     # -- prefill(S-1) + decode_step against prefill(S) -----------------------
     with moe.record_dispatch() as rec2:
-        lg, c = tf.prefill(params, cfg, {"tokens": toks[:, :-1]},
-                           max_seq=MOE_MAX_SEQ)
+        lg, c = tf.prefill(params, cfg, part(batch, slice(-1)),
+                           max_seq=max_seq)
         del lg
-        lg, _ = api.decode_step(params, cfg, c, {
-            "tokens": toks[:, -1:], "pos": MOE_PROMPT - 1})
+        lg, _ = api.decode_step(params, cfg, c, dict(
+            part(batch, slice(-1, None)), pos=s - 1))
         del c
     dec = lg[:, 0]
     # a row computes the same function both ways where the decode step
@@ -4432,88 +4567,98 @@ def moe_model(dev, arch):
     # capacity drops the latest tokens first, so prefill(S)'s last token
     # may lose experts the decode step keeps: that row is logged, not gated
     check(all(bool(d.keep.all()) for d in rec2[len(rec):]),
-          f"13c {arch}: the decode step dropped an assignment")
-    all_kept = torch.ones(MOE_BATCH, dtype=torch.bool, device=dev)
+          f"{phase} {arch}: the decode step dropped an assignment")
+    all_kept = torch.ones(B, dtype=torch.bool, device=dev)
     same_dispatch = torch.ones_like(all_kept)
     for long, short in zip(rec, rec2[:len(rec)]):
-        a = long.keep.reshape(MOE_BATCH, MOE_PROMPT, -1)
-        b = short.keep.reshape(MOE_BATCH, MOE_PROMPT - 1, -1)
+        a = long.keep.reshape(B, s, -1)
+        b = short.keep.reshape(B, s - 1, -1)
         all_kept &= a.all(-1).all(-1) & b.all(-1).all(-1)
         same_dispatch &= (a[:, :-1] == b).all(-1).all(-1) & a[:, -1].all(-1)
     rel = (torch.linalg.vector_norm(dec - last, dim=-1)
            / torch.linalg.vector_norm(last, dim=-1)).tolist()
     same = (dec.argmax(-1) == last.argmax(-1)).tolist()
     all_kept, gated = all_kept.tolist(), same_dispatch.tolist()
-    log(f"13c {arch}: prefill({MOE_PROMPT - 1}) + decode_step vs "
-        f"prefill({MOE_PROMPT}) by row: relative L2 of the last logits "
-        f"{[f'{r:.3e}' for r in rel]}, argmax equal {same}; every "
-        f"assignment kept in both prefills {all_kept}; the same assignments "
-        f"kept and the last token's all kept {gated} (gated where so)")
-    for b in range(MOE_BATCH):
+    kept_log = (f"; every assignment kept in both prefills {all_kept}; the "
+                f"same assignments kept and the last token's all kept "
+                f"{gated} (gated where so)" if rec else "")
+    log(f"{phase} {arch}: prefill({s - 1}) + decode_step vs prefill({s}) "
+        f"by row: relative L2 of the last logits "
+        f"{[f'{r:.3e}' for r in rel]}, argmax equal {same}{kept_log}")
+    for b in range(B):
         check(not gated[b] or (same[b] and rel[b] < LM_CONSISTENCY_REL),
-              f"13c {arch}: row {b}, the same assignments kept: prefill + "
-              f"decode_step disagrees with prefill (relative L2 "
-              f"{rel[b]:.3e}, argmax equal {same[b]})")
+              f"{phase} {arch}: row {b}: prefill + decode_step disagrees "
+              f"with prefill (relative L2 {rel[b]:.3e}, argmax equal "
+              f"{same[b]})")
+    probe_log, probed = probe(params, batch) if probe else ("", {})
     del params
     torch.cuda.empty_cache()
 
     steps = sorted(step_s)
-    drop_log = (f"dropped share of the prefill's assignments by layer "
+    kinds = dict(collections.Counter(cfg.layer_kinds()))
+    active = (f" ({tf.active_param_count(cfg):,} active a token)" if n_moe
+              else "")
+    drop_log = (f"; dropped share of the prefill's assignments by layer "
                 f"{[round(x, 5) for x in dropped]} (mean "
                 f"{sum(dropped) / len(dropped):.5f}, max {max(dropped):.5f})"
-                if dropped else "no MoE layer")
-    log(f"13c {arch}: {n} layers, d_model {cfg.d_model}, "
-        f"{tf.param_count(cfg):,} parameters ({tf.active_param_count(cfg):,} "
-        f"active a token) in {cfg.param_dtype}, drawn on the card in "
-        f"{init_s:.2f} s (peak {init_peak / 1e9:.2f} GB); prefill "
-        f"{MOE_BATCH} x {MOE_PROMPT} tokens in {prefill_s:.3f} s "
-        f"({MOE_BATCH * MOE_PROMPT / prefill_s:,.0f} tokens/s); "
-        f"flash_attention {launches} launches {routes}; {drop_log}; "
+                if dropped else "")
+    log(f"{phase} {arch}: {cfg.n_layers} layers {kinds}, d_model "
+        f"{cfg.d_model}, {n_params:,} parameters{active} "
+        f"({n_params * 2 / 1e9:.2f} GB in bf16){note}, drawn on the card in "
+        f"{init_s:.2f} s (peak {init_peak / 1e9:.2f} GB); prefill {B} x {s} "
+        f"tokens into a {max_seq}-token cache (attention caches {rings}) in "
+        f"{prefill_s:.3f} s ({B * s / prefill_s:,.0f} tokens/s); "
+        f"flash_attention {launches} launches {routes}{drop_log}; "
         f"{MOE_DECODE} greedy decode steps, median "
         f"{steps[len(steps) // 2] * 1e3:.2f} ms (min {steps[0] * 1e3:.2f}, "
         f"max {steps[-1] * 1e3:.2f}); tokens per row "
-        f"{[[g[b] for g in generated] for b in range(MOE_BATCH)]}; peak "
-        f"memory from the prefill on {peak / 1e9:.2f} GB")
-    return dict(parameters=tf.param_count(cfg), init_s=init_s,
-                init_peak_bytes=init_peak, prefill_s=prefill_s,
+        f"{[[g[b] for g in generated] for b in range(B)]}; peak memory "
+        f"from the prefill on {peak / 1e9:.2f} GB{probe_log}")
+    return dict(layers=cfg.n_layers, parameters=n_params, init_s=init_s,
+                init_peak_bytes=init_peak, prompt=s, prefill_s=prefill_s,
                 launches=launches, routes=routes, dropped_share=dropped,
                 decode_ms=[t * 1e3 for t in step_s], peak_memory_bytes=peak,
                 consistency_rel_l2=rel, consistency_argmax_equal=same,
-                all_kept=all_kept, consistency_gated=gated)
+                all_kept=all_kept, consistency_gated=gated, **probed)
+
+
+def cli_run(phase, args):
+    """``python -m repro_torch.launch.serve *args`` in a subprocess, which
+    must serve 8/8 requests.  Returns its figures, its tok/s as the CLI
+    printed it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    served = re.compile(r"served (\d+)/(\d+) requests, (\d+) tokens in "
+                        r"([0-9.]+)s \(([0-9.]+) tok/s\), (\d+) ticks")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        capture_output=True, text=True, env=env,
+        timeout=MOE_CLI_TIMEOUT_S, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{phase}: python -m repro_torch.launch."
+          f"serve {' '.join(args)} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    m = served.fullmatch(lines[0]) if lines else None
+    check(m is not None and m.group(1) == m.group(2) == "8",
+          f"{phase}: python -m repro_torch.launch.serve {' '.join(args)} "
+          f"printed {proc.stdout[:500]!r}, not 'served 8/8 requests'")
+    log(f"{phase} python -m repro_torch.launch.serve {' '.join(args)}: "
+        f"{lines[0]} (the process {wall:.1f} s)")
+    return dict(tokens=int(m.group(3)), serve_s=float(m.group(4)),
+                tok_s=float(m.group(5)), ticks=int(m.group(6)),
+                process_s=wall, req0=lines[1].strip())
 
 
 def serve_cli():
     """13d: ``python -m repro_torch.launch.serve`` in a subprocess for each
     arch at full width on the card, then the reduced default on the card
     and on the CPU; each must serve 8/8 requests.  Returns each run's
-    figures, its tok/s as the CLI printed it."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    figures."""
     runs = [(f"{a} full", ["--no-reduced", "--arch", a]) for a in MOE_ARCHS]
     runs += [("olmo-1b reduced", []),
              ("olmo-1b reduced cpu", ["--torch-device", "cpu"])]
-    served = re.compile(r"served (\d+)/(\d+) requests, (\d+) tokens in "
-                        r"([0-9.]+)s \(([0-9.]+) tok/s\), (\d+) ticks")
-    out = {}
-    for label, args in runs:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", *args],
-            capture_output=True, text=True, env=env,
-            timeout=MOE_CLI_TIMEOUT_S, cwd=ROOT)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, f"13d: python -m repro_torch.launch."
-              f"serve {' '.join(args)} exited {proc.returncode}: "
-              f"{proc.stderr[-2000:]}")
-        lines = proc.stdout.strip().splitlines()
-        m = served.fullmatch(lines[0]) if lines else None
-        check(m is not None and m.group(1) == m.group(2) == "8",
-              f"13d: python -m repro_torch.launch.serve {' '.join(args)} "
-              f"printed {proc.stdout[:500]!r}, not 'served 8/8 requests'")
-        out[label] = dict(tokens=int(m.group(3)), serve_s=float(m.group(4)),
-                          tok_s=float(m.group(5)), ticks=int(m.group(6)),
-                          process_s=wall, req0=lines[1].strip())
-        log(f"13d python -m repro_torch.launch.serve {' '.join(args)}: "
-            f"{lines[0]} (the process {wall:.1f} s)")
+    out = {label: cli_run("13d", args) for label, args in runs}
     a, b = out["olmo-1b reduced"]["req0"], out["olmo-1b reduced cpu"]["req0"]
     log(f"13d the reduced default (bf16) on the card and the CPU: req0 "
         f"{'equal' if a == b else 'differs'}: {a} / {b}")
@@ -4522,12 +4667,15 @@ def serve_cli():
 
 def moe_serving(dev):
     """Phase 13; returns what it adds to the flash_attention record."""
+    from repro_torch.configs.registry import get_config
     t_phase = time.perf_counter()
-    shapes = moe_attention(dev)
+    shapes = attention_at(dev, "13a", MOE_ATTN_SHAPES, SEED + 53)
     torch.cuda.empty_cache()
     layer = moe_layer(dev)
     torch.cuda.empty_cache()
-    models = {arch: moe_model(dev, arch) for arch in MOE_ARCHS}
+    models = {arch: serve_model(dev, "13c", arch, get_config(arch),
+                                SEED + 67, MOE_PROMPT, MOE_MAX_SEQ)
+              for arch in MOE_ARCHS}
     cli = serve_cli()
     secs = time.perf_counter() - t_phase
     log(f"13: phase 13 took {secs:.1f} s")
@@ -4536,6 +4684,416 @@ def moe_serving(dev):
         shapes_13a=shapes, moe_layer_13b=layer,
         launches_13c={a: m["launches"] for a, m in models.items()},
         models_13c=models, cli_13d=cli, phase_13_s=secs)}
+
+
+# ---------------------------------------------------------------------------
+# the last six architectures
+# ---------------------------------------------------------------------------
+
+def formula_params(cfg):
+    """Parameters of ``cfg`` counted from its fields alone (held against
+    ``param_count``, which walks the specs)."""
+    D, V, H, Hkv, hd, F = (cfg.d_model, cfg.vocab, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff)
+    norm = D if cfg.norm_kind in ("rmsnorm", "layernorm") else 0
+    attn = D * hd * (2 * H + 2 * Hkv) + 3 * D * F
+    if cfg.encdec:
+        enc = attn + 2 * norm
+        dec = 2 * attn - 3 * D * F + 3 * norm
+        return V * D + cfg.n_enc_layers * enc + cfg.n_dec_layers * dec + 2 * D
+    per_kind = {"mlstm": 3 * D * H * hd + 2 * D * H + D * D + H * hd * D
+                + norm, "slstm": 8 * D * D + norm}
+    layers = sum(per_kind.get(kind, attn + 2 * norm)
+                 for kind in cfg.layer_kinds())
+    return V * D * (1 if cfg.tie_embeddings else 2) + layers + norm
+
+
+def vl_positions(b, dev):
+    """qwen2-vl-7b's prompt positions3 [3, b, VL_TEXT + rows * cols] and
+    the position decode continues from."""
+    rows, cols = VL_GRID
+    text = torch.arange(VL_TEXT).expand(3, -1)
+    r = torch.arange(rows).repeat_interleave(cols)
+    c = torch.arange(cols).repeat(rows)
+    image = torch.stack([torch.full_like(r, VL_TEXT), VL_TEXT + r,
+                         VL_TEXT + c])
+    p3 = torch.cat([text, image], dim=1)
+    return (p3[:, None, :].expand(3, b, -1).to(torch.int32).to(dev),
+            int(p3.max()) + 1)
+
+
+def new_batch(cfg, b, s, gen, dev):
+    """A batch of ``b`` prompts of ``s`` positions from ``gen``: tokens,
+    or for qwen2-vl embeds [b, s, D] (standard normal, in the parameters'
+    type) with vl_positions' positions3.  Returns (batch, the position3
+    decode continues from, or None)."""
+    if cfg.input_mode != "embeds":
+        return {"tokens": torch.randint(0, cfg.vocab, (b, s),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)}, None
+    check(s == VL_TEXT + VL_GRID[0] * VL_GRID[1], f"14c: a qwen2-vl prompt "
+          f"of {s} positions, not the text and the image")
+    p3, nxt = vl_positions(b, dev)
+    return {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
+                                  device=dev).to(torch.bfloat16),
+            "positions3": p3}, nxt
+
+
+def part(batch, sl):
+    """The batch's positions ``sl`` (positions3 [3, B, S] on its last
+    axis)."""
+    return {k: v[:, :, sl] if k == "positions3" else v[:, sl]
+            for k, v in batch.items()}
+
+
+def step_batch(cfg, params, nxt, pos, p3):
+    """A decode step's batch: the greedy tokens [B], or for an embeds
+    config their (unscaled) embedding rows at positions3 ``p3``."""
+    if cfg.input_mode != "embeds":
+        return {"tokens": nxt[:, None].to(torch.int32), "pos": pos}
+    return {"embeds": params["embed"][nxt.long()][:, None], "pos": pos,
+            "positions3": torch.full((3, nxt.shape[0], 1), p3,
+                                     dtype=torch.int32, device=nxt.device)}
+
+
+def recurrence_costs(dev, cfg, params, toks):
+    """xlstm-125m's two host loops over S timed alone on its first two
+    layers: an sLSTM layer's slstm_seq and an mLSTM layer's capture
+    (mlstm_step over every position).  Returns their seconds."""
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import apply_norm
+    x, _, _ = tf.embed_inputs(params, cfg, {"tokens": toks})
+    pm, ps = (tf.take(params["blocks"][k], 0)
+              for k in ("p0_mlstm", "p1_slstm"))
+    h = apply_norm(cfg.norm_kind, x, pm.get("ln1"))
+    q, k, v, log_f, log_i = tf._mlstm_inputs(pm, h)
+    B, S, H, hd = q.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = rec.MLSTMState(torch.zeros((B, H, hd, hd), device=dev),
+                        torch.zeros((B, H, hd), device=dev),
+                        torch.zeros((B, H), device=dev))
+    for t in range(S):
+        _, st = rec.mlstm_step(q[:, t], k[:, t], v[:, t], log_f[:, t],
+                               log_i[:, t], st)
+    torch.cuda.synchronize()
+    mlstm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec.slstm_seq(apply_norm(cfg.norm_kind, x, ps.get("ln1")), ps)
+    torch.cuda.synchronize()
+    return mlstm_s, time.perf_counter() - t0
+
+
+def new_model(dev, arch):
+    """14c for one decoder-only arch: its parameter count held against its
+    config's fields and its attention layers against NEW_LAUNCHES, then
+    13c's run (serve_model) at full width in bf16, llama3-405b at
+    LLAMA_LAYERS layers (the one cut, logged), gemma2-2b's prompts of
+    GEMMA_PROMPT tokens into GEMMA_MAX_SEQ, xlstm-125m's host loops over S
+    timed alone after.  Returns its figures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    note = ""
+    if arch == LLAMA_ARCH:
+        full = tf.param_count(cfg)
+        cfg = cfg.replace(n_layers=LLAMA_LAYERS)
+        note = (f"; cut to {LLAMA_LAYERS} of its "
+                f"{get_config(arch).n_layers} layers, width kept (the whole "
+                f"model: {full:,} parameters, {full * 2 / 1e9:.1f} GB in "
+                f"bf16)")
+    n_params = tf.param_count(cfg)
+    check(n_params == formula_params(cfg), f"14c {arch}: param_count "
+          f"{n_params:,}, its config's fields give {formula_params(cfg):,}")
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    check(n_attn == NEW_LAUNCHES[arch], f"14c {arch}: {n_attn} attention "
+          f"layers, not {NEW_LAUNCHES[arch]}")
+    s, max_seq = ((GEMMA_PROMPT, GEMMA_MAX_SEQ) if arch == "gemma2-2b"
+                  else (NEW_PROMPT, NEW_MAX_SEQ))
+    probe = None
+    if arch == "xlstm-125m":
+        def probe(params, batch):
+            mlstm_s, slstm_s = recurrence_costs(dev, cfg, params,
+                                                batch["tokens"])
+            return (f"; the host loops over S alone: an mLSTM layer's "
+                    f"capture (mlstm_step x {s}) {mlstm_s:.2f} s, an sLSTM "
+                    f"layer's slstm_seq {slstm_s:.2f} s",
+                    dict(mlstm_capture_s=mlstm_s, slstm_seq_s=slstm_s))
+    return serve_model(dev, "14c", arch, cfg, SEED + 79, s, max_seq,
+                       note=note, probe=probe)
+
+
+def seamless_model(dev):
+    """14c for seamless-m4t-medium at full width in bf16: encode
+    src_embeds [2, 2000, 1024] (12 flash_attention launches, all on the
+    tensor cores), init_cache_from_encoder with a 64-token target cache,
+    16 greedy decode_steps from token 0, each step's logits against a
+    teacher-forced forward on the same tokens (relative L2 within
+    LM_CONSISTENCY_REL, argmax equal).  Returns its figures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api, encdec
+    from repro_torch.models import transformer as tf
+    cfg = get_config(SEAMLESS_ARCH)
+    n_params = sum(math.prod(x.shape)
+                   for _, x in tf.leaves(api.param_specs(cfg)))
+    check(n_params == formula_params(cfg), f"14c seamless: {n_params:,} "
+          f"parameters, its config's fields give {formula_params(cfg):,}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = api.init_params(SEED + 89, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 97)
+    src = torch.randn((NEW_BATCH, SEAMLESS_SRC, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    zero = torch.zeros((NEW_BATCH, 1), dtype=torch.int32, device=dev)
+    # warm-up
+    c = encdec.init_cache_from_encoder(params, cfg, src[:, :64], 8)
+    encdec.decode_step(params, cfg, c, {"tokens": zero, "pos": 0})
+    del c
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kfa.reset_launches()
+    t0 = time.perf_counter()
+    enc = encdec.encode(params, cfg, src)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    routes = dict(flash_attention.launches_by_route)
+    check(bool(torch.isfinite(enc).all()) and enc.shape == src.shape,
+          f"14c seamless: encode {enc.dtype}{tuple(enc.shape)}, or not "
+          f"finite")
+    check(launches == SEAMLESS_ENCODE_LAUNCHES
+          and routes[kfa.TENSOR_CORES] == launches, f"14c seamless: encode "
+          f"launched flash_attention {launches} times {routes}, not "
+          f"{SEAMLESS_ENCODE_LAUNCHES} on the tensor cores")
+    del enc
+    kfa.reset_launches()
+    t0 = time.perf_counter()
+    cache = encdec.init_cache_from_encoder(params, cfg, src, SEAMLESS_TGT)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    check(flash_attention.launches == SEAMLESS_ENCODE_LAUNCHES,
+          f"14c seamless: init_cache_from_encoder launched flash_attention "
+          f"{flash_attention.launches} times")
+    toks, steps, step_s = [zero], [], []
+    for t in range(SEAMLESS_DECODE):
+        t0 = time.perf_counter()
+        lg, cache = api.decode_step(params, cfg, cache,
+                                    {"tokens": toks[-1], "pos": t})
+        nxt = lg[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(lg).all()), f"14c seamless: decode step "
+              f"{t}: logits not finite")
+        steps.append(lg[:, 0])
+        toks.append(nxt[:, None].to(torch.int32))
+    del cache
+    check(flash_attention.launches == SEAMLESS_ENCODE_LAUNCHES,
+          "14c seamless: decode launched flash_attention")
+    peak = torch.cuda.max_memory_allocated(dev)
+    tgt = torch.cat(toks[:-1], dim=1)
+    kfa.reset_launches()
+    full, _ = api.forward(params, cfg, {"src_embeds": src, "tokens": tgt})
+    fwd_launches = flash_attention.launches
+    check(fwd_launches == 3 * SEAMLESS_ENCODE_LAUNCHES, f"14c seamless: a "
+          f"teacher-forced forward launched flash_attention {fwd_launches} "
+          f"times, not 12 + 12 + 12")
+    dec = torch.stack(steps, dim=1)
+    rel = (torch.linalg.vector_norm(dec - full, dim=-1)
+           / torch.linalg.vector_norm(full, dim=-1))
+    same = dec.argmax(-1) == full.argmax(-1)
+    log(f"14c seamless: decode_step vs a teacher-forced forward on the "
+        f"greedy tokens: relative L2 by step, largest "
+        f"{float(rel.max()):.3e} (median {float(rel.median()):.3e}), "
+        f"argmax equal at {int(same.sum())} of {same.numel()}")
+    check(bool(same.all()) and float(rel.max()) < LM_CONSISTENCY_REL,
+          f"14c seamless: decode_step disagrees with forward (relative L2 "
+          f"up to {float(rel.max()):.3e}, argmax equal "
+          f"{int(same.sum())}/{same.numel()})")
+    del params, full, dec
+    torch.cuda.empty_cache()
+    srt = sorted(step_s)
+    log(f"14c seamless: {cfg.n_enc_layers} + {cfg.n_dec_layers} layers, "
+        f"d_model {cfg.d_model}, {n_params:,} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB in bf16), drawn in {init_s:.2f} s; "
+        f"encode {NEW_BATCH} x {SEAMLESS_SRC} frames in {encode_s:.3f} s "
+        f"({NEW_BATCH * SEAMLESS_SRC / encode_s:,.0f} frames/s), "
+        f"flash_attention {launches} launches {routes}; "
+        f"init_cache_from_encoder {cache_s:.3f} s; {SEAMLESS_DECODE} greedy "
+        f"decode steps, median {srt[len(srt) // 2] * 1e3:.2f} ms (min "
+        f"{srt[0] * 1e3:.2f}, max {srt[-1] * 1e3:.2f}); tokens per row "
+        f"{torch.cat(toks[1:], 1).tolist()}; teacher-forced "
+        f"forward: {fwd_launches} launches; peak memory from the encode "
+        f"on {peak / 1e9:.2f} GB")
+    return dict(parameters=n_params, init_s=init_s, encode_s=encode_s,
+                cache_s=cache_s, launches=launches, routes=routes,
+                forward_launches=fwd_launches,
+                decode_ms=[t * 1e3 for t in step_s], peak_memory_bytes=peak,
+                consistency_rel_l2_max=float(rel.max()))
+
+
+def arch_reduced(dev, arch, seeds, serve=False):
+    """8c and 14b on ``dev``: ``arch``'s REDUCED config in float32,
+    weights drawn on the CPU from ``seeds[0]``, inputs from ``seeds[1]``;
+    a decoder's forward over 40 positions (past recurrentgemma's 16-token
+    window) and prefill(39) + decode_step (qwen2-vl with embeds and
+    unequal positions3), with ``serve`` a 2-slot ServingEngine answering 3
+    requests; seamless's encode, forward and 4 decode_steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api, encdec
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServingEngine
+    cfg = get_config(arch, reduced=True).replace(param_dtype="float32")
+    params = tf.map_tree(lambda _, x: x.to(dev),
+                         api.init_params(seeds[0], cfg, "cpu"))
+    rng = np.random.default_rng(seeds[1])
+    if cfg.encdec:
+        src = torch.as_tensor(rng.standard_normal((2, 40, cfg.d_model)),
+                              dtype=torch.float32, device=dev)
+        tgt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 12)),
+                              dtype=torch.int32, device=dev)
+        enc = encdec.encode(params, cfg, src)
+        logits, _ = api.forward(params, cfg, {"src_embeds": src,
+                                              "tokens": tgt})
+        cache = encdec.init_cache_from_encoder(params, cfg, src, 16)
+        steps = []
+        for t in range(4):
+            lg, cache = api.decode_step(params, cfg, cache, {
+                "tokens": tgt[:, t:t + 1], "pos": t})
+            steps.append(lg[:, 0])
+        return dict(encode=enc.cpu(), forward=logits.cpu(),
+                    decode=torch.stack(steps, 1).cpu())
+    if cfg.input_mode == "embeds":
+        t = np.arange(40)
+        p3 = np.stack([t, t // 4 + 1, t % 4 + 2 * (t // 8)])
+        batch = {"embeds": torch.as_tensor(
+            rng.standard_normal((2, 40, cfg.d_model)), dtype=torch.float32,
+            device=dev), "positions3": torch.as_tensor(
+            np.broadcast_to(p3[:, None], (3, 2, 40)).copy(),
+            dtype=torch.int32, device=dev)}
+    else:
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                        (2, 40)),
+                                           dtype=torch.int32, device=dev)}
+    logits, _ = api.forward(params, cfg, batch)
+    pre, cache = tf.prefill(params, cfg, part(batch, slice(-1)),
+                            max_seq=48)
+    dec, _ = api.decode_step(params, cfg, cache, dict(
+        part(batch, slice(-1, None)), pos=39))
+    out = dict(forward=logits.cpu(), prefill=pre.cpu(),
+               decode=dec[:, 0].cpu())
+    if serve:
+        eng = ServingEngine(cfg, params, n_slots=2, max_seq=32, device=dev)
+        reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32),
+                        max_new_tokens=6) for i, n in enumerate((5, 8, 3))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        out["serve"] = [r.generated for r in reqs]
+    return out
+
+
+def new_reduced(dev):
+    """14b: every new arch's REDUCED config on the card and the CPU, each
+    output within LM_REDUCED_TOL of the CPU's largest.  Returns the
+    largest differences."""
+    worst = {}
+    for arch in NEW_ARCHS + (SEAMLESS_ARCH,):
+        seeds = (SEED + 101, SEED + 103)
+        card = arch_reduced(dev, arch, seeds)
+        cpu = arch_reduced(torch.device("cpu"), arch, seeds)
+        for key, b in cpu.items():
+            err = float((card[key] - b).abs().max())
+            worst[f"{arch} {key}"] = err
+            check(err <= LM_REDUCED_TOL * float(b.abs().max()),
+                  f"14b reduced {arch} {key}: card vs CPU off by {err:.3e} "
+                  f"(max|CPU| {float(b.abs().max()):.3e})")
+    log(f"14b the six new archs reduced, float32, card vs CPU, within "
+        f"{LM_REDUCED_TOL:g} x max|output|: largest differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def new_serving(dev):
+    """14d: ``python -m repro_torch.launch.serve --no-reduced`` for the
+    token archs of NEW_CLI_ARCHS in a subprocess each (8/8 requests), the
+    CLI's refusal of the embeds and encoder-decoder archs with the
+    reference's message, and qwen2-vl-7b's ServingEngine at full width
+    through the embeds path.  Returns the figures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServingEngine
+    out = {arch: cli_run("14d", ["--no-reduced", "--arch", arch])
+           for arch in NEW_CLI_ARCHS}
+    for arch in NEW_CLI_REFUSED:
+        try:
+            serve.main(["--no-reduced", "--arch", arch])
+            refused = None
+        except SystemExit as err:
+            refused = str(err)
+        check(refused == "CLI serving demo targets token-LM archs",
+              f"14d: the CLI on {arch}: {refused!r}, not the reference's "
+              f"refusal")
+        log(f"14d the CLI refuses {arch}: {refused!r}")
+    cfg = get_config(VL_ARCH)
+    params = api.init_params(SEED + 107, cfg, dev)
+    eng = ServingEngine(cfg, params, n_slots=VL_SERVE_SLOTS,
+                        max_seq=NEW_MAX_SEQ, device=dev)
+    rng = np.random.default_rng(SEED + 109)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, VL_SERVE_PROMPT).astype(
+        np.int32), max_new_tokens=VL_SERVE_NEW)
+        for i in range(VL_SERVE_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(len(done) == VL_SERVE_REQUESTS and all(
+        r.done and len(r.generated) == VL_SERVE_NEW for r in reqs),
+        f"14d: the qwen2-vl-7b ServingEngine answered {len(done)} of "
+        f"{VL_SERVE_REQUESTS}")
+    log(f"14d {VL_ARCH} ServingEngine (embeds: the unscaled embedding rows "
+        f"of the tokens), {VL_SERVE_SLOTS} slots, {VL_SERVE_REQUESTS} "
+        f"requests of {VL_SERVE_PROMPT} + {VL_SERVE_NEW} tokens: served "
+        f"{len(done)}/{VL_SERVE_REQUESTS} in {eng.ticks} ticks, "
+        f"{serve_s:.3f} s; tokens {[r.generated for r in reqs]}")
+    out[VL_ARCH + " engine"] = dict(served=len(done), ticks=eng.ticks,
+                                    serve_s=serve_s)
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def new_archs(dev):
+    """Phase 14; returns what it adds to the flash_attention record."""
+    t_phase = time.perf_counter()
+    # full f32 products for 14b and the sLSTM's f32 weights (phase 8a sets
+    # the same; set here too so that the phase stands alone)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = attention_at(dev, "14a", NEW_ATTN_SHAPES, SEED + 73)
+    torch.cuda.empty_cache()
+    reduced = new_reduced(dev)
+    models = {}
+    for arch in NEW_ARCHS:
+        models[arch] = new_model(dev, arch)
+    models[SEAMLESS_ARCH] = seamless_model(dev)
+    cli = new_serving(dev)
+    secs = time.perf_counter() - t_phase
+    log(f"14: phase 14 took {secs:.1f} s")
+    return {"flash_attention": dict(
+        max_abs_err_14a=max(r["max_abs_err"] for r in shapes),
+        shapes_14a=shapes, reduced_14b=reduced,
+        launches_14c={a: m["launches"] for a, m in models.items()},
+        models_14c=models, serving_14d=cli, phase_14_s=secs)}
 
 
 if __name__ == "__main__":

@@ -32,7 +32,7 @@ from repro_torch.core.stream import schema
 from repro_torch.core.stream.estimators import StreamCorrections
 from repro_torch.core.stream.monitor import MonitorService
 from repro_torch.core.stream.state import DeviceState
-from repro_torch.models import transformer
+from repro_torch.models import api, transformer
 
 _RING_SLOT_FIELDS = tuple(schema.RING_SLOT_FIELDS)
 _MOMENT_FIELDS = tuple(schema.MOMENT_FIELDS)
@@ -185,14 +185,15 @@ def _from_numpy(x) -> torch.Tensor:
 def lm_params(ref_params: Mapping, cfg: ArchConfig,
               device: DeviceLike = "cuda") -> Dict:
     """The port's parameter tree for ``cfg`` from a reference tree
-    (``repro.models.api.init_params``'s, its leaves as numpy arrays):
-    the same nested keys, every leaf's values, shape and type kept, the
-    MoE experts with their padding experts (``[Ep, ...]``, ``Ep =
-    cfg.n_experts_padded``; the router keeps its ``E`` columns).  Raises
-    if a leaf is missing, extra, or of another shape or type: a tree
-    whose experts are not padded is refused."""
+    (``repro.models.api.init_params``'s, its leaves as numpy arrays; a
+    decoder-only or an encoder–decoder tree, as ``api.param_specs``
+    lays it out): the same nested keys, every leaf's values, shape and
+    type kept, the MoE experts with their padding experts (``[Ep, ...]``,
+    ``Ep = cfg.n_experts_padded``; the router keeps its ``E`` columns).
+    Raises if a leaf is missing, extra, or of another shape or type: a
+    tree whose experts are not padded is refused."""
     dev = resolve_device(device)
-    specs = transformer.param_specs(cfg)
+    specs = api.param_specs(cfg)
     want = {path for path, _ in transformer.leaves(specs)}
     have = {path for path, _ in transformer.leaves(dict(ref_params))}
     if want != have:

@@ -7,6 +7,9 @@ defaults and printed lines).
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
         --arch qwen2-moe-a2.7b
 
+``--arch`` offers every architecture of the registry; as in the
+reference, an encoder–decoder or ``embeds`` architecture (seamless-m4t,
+qwen2-vl) is refused with "CLI serving demo targets token-LM archs".
 The model runs on the card unless ``--torch-device cpu``.  ``--reduced``
 is on by default, as in the reference; ``--no-reduced`` serves the full
 configuration, which the reference's flag (``store_true`` with a default

@@ -1,5 +1,6 @@
-"""Shared layers of the port's language model: norms, RoPE, the gated
-MLP and attention (a port of :mod:`repro.models.layers`).
+"""Shared layers of the port's language model: norms, RoPE and
+Qwen2-VL's 3-axis M-RoPE, the gated MLP and attention (a port of
+:mod:`repro.models.layers`).
 
 Types follow JAX's promotion at each op, written out because
 ``torch.einsum`` refuses mixed types: a product of two bf16 tensors is
@@ -10,7 +11,7 @@ taken to f32 (a bf16 product is exact in f32, so this is the same sum).
 :func:`blocked_attention` is the plain version of the CUDA
 ``flash_attention`` kernel (:mod:`repro_torch.kernels.flash_attention`),
 as the reference's ``kernels/ref.py`` makes it the Pallas kernel's
-oracle.  ``apply_mrope`` is not ported yet (ROADMAP A.6).
+oracle.
 """
 from __future__ import annotations
 
@@ -90,6 +91,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_frequencies(x.shape[-1], theta, x.device)     # [D/2]
     ang = positions[..., None].float() * freqs            # [..., S, D/2]
     ang = ang[..., None, :]                               # [..., S, 1, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: tuple = (1, 1, 2),
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the head-dim frequency bands are split
+    across (temporal, height, width) position axes.
+
+    x [B, S, H, D]; positions3 [3, B, S].  ``sections`` are relative
+    proportions of the D/2 frequency bands: band i takes
+    ``half * sections[i] // sum(sections)`` of them, the last the rest.
+    With the three axes equal this is :func:`apply_rope`.
+    """
+    half = x.shape[-1] // 2
+    total = sum(sections)
+    sizes = [half * s // total for s in sections]
+    sizes[-1] = half - sizes[0] - sizes[1]
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # [D/2]
+    band = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                      for i, n in enumerate(sizes)])           # [D/2]
+    # each frequency band takes its axis' positions: [B, S, D/2]
+    pos_sel = positions3.to(x.device)[band].movedim(0, -1)
+    ang = (pos_sel.float() * freqs)[..., None, :]             # [B,S,1,D/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

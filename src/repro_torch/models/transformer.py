@@ -1,6 +1,7 @@
-"""Decoder-only LM of the port: the block kinds ``rglru``, ``attn``,
-``attn_local`` and ``attn_global``, with a dense MLP or a mixture of
-experts after attention (a port of :mod:`repro.models.transformer`).
+"""Decoder-only LM of the port: every block kind of the reference —
+``attn``, ``attn_local`` and ``attn_global`` with a dense MLP or a
+mixture of experts after attention, ``rglru``, ``mlstm`` and ``slstm``
+(a port of :mod:`repro.models.transformer`).
 
 Parameters are a nested dict of tensors in the reference's layout:
 layers grouped into pattern periods with each leaf stacked over periods
@@ -23,9 +24,12 @@ attention through :func:`repro_torch.kernels.flash_attention
 RG-LRU recurrence through :func:`repro_torch.kernels.rglru_scan
 .rglru_scan` where it calls ``rglru_scan_ref``.  The reference's
 ``use_pallas`` flag has no counterpart: the tensors' device chooses.
-The MoE layer (:mod:`.moe`) is plain PyTorch, as the reference's is plain
-``jnp``.  mLSTM, sLSTM, M-RoPE and ``embeds`` inputs raise
-``NotImplementedError`` (ROADMAP A.6).
+The MoE layer (:mod:`.moe`) and the mLSTM/sLSTM blocks
+(:mod:`.recurrent`) are plain PyTorch, as the reference's are plain
+``jnp``.  An ``embeds`` config (qwen2-vl) takes ``batch["embeds"]``, cast
+to the parameters' type and not scaled; with ``cfg.mrope`` and
+``batch["positions3"]`` its attention rotates by M-RoPE, otherwise by
+RoPE, as the reference's does.
 
 Types follow the reference op by op (see :mod:`.layers`).  A float32
 product is full float32 only with TF32 off: the port leaves
@@ -39,12 +43,13 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import recurrent as rec
-from repro_torch.models.layers import (apply_norm, apply_rope,
+from repro_torch.models.layers import (apply_mrope, apply_norm, apply_rope,
                                        decode_attention, einsum, einsum_f32,
                                        gated_mlp)
 from repro_torch.models.moe import moe_ffn
@@ -70,27 +75,8 @@ def _norm_has_scale(cfg: ArchConfig) -> bool:
     return cfg.norm_kind in ("rmsnorm", "layernorm")
 
 
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(f"block kind {kind!r} not ported yet "
-                               f"(ROADMAP A.6)")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    missing = []
-    if cfg.encdec:
-        missing.append("encoder-decoder")
-    if cfg.mrope:
-        missing.append("M-RoPE")
-    if cfg.input_mode != "tokens":
-        missing.append(f"{cfg.input_mode!r} inputs")
-    missing += [f"{k!r} blocks" for k in sorted(set(cfg.block_pattern))
-                if k not in ATTN_KINDS + ("rglru",)]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name or 'this config'}: {', '.join(missing)} not ported "
-            f"yet (ROADMAP A.6); the port runs rglru and attention blocks "
-            f"with a dense MLP or a mixture of experts")
+def _unknown(kind: str) -> ValueError:
+    return ValueError(f"unknown block kind {kind}")
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +144,43 @@ def _rglru_specs(cfg: ArchConfig) -> Dict[str, Any]:
     return s
 
 
+def _mlstm_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    D, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    dt = _dtype(cfg)
+    s: Dict[str, Any] = {
+        "wq": TensorSpec((D, H, hd), dt),
+        "wk": TensorSpec((D, H, hd), dt),
+        "wv": TensorSpec((D, H, hd), dt),
+        "w_if": TensorSpec((D, 2 * H), torch.float32),
+        "w_og": TensorSpec((D, D), dt),
+        "w_out": TensorSpec((H, hd, D), dt),
+    }
+    if _norm_has_scale(cfg):
+        s["ln1"] = TensorSpec((D,), dt)
+    return s
+
+
+def _slstm_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    D = cfg.d_model
+    # the recurrent weights stay f32 whatever param_dtype is
+    s: Dict[str, Any] = {k: TensorSpec((D, D), torch.float32)
+                         for k in ("w_z", "w_i", "w_f", "w_o",
+                                   "r_z", "r_i", "r_f", "r_o")}
+    if _norm_has_scale(cfg):
+        s["ln1"] = TensorSpec((D,), _dtype(cfg))
+    return s
+
+
 def _block_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
     if kind in ATTN_KINDS:
         return _attn_specs(cfg)
     if kind == "rglru":
         return _rglru_specs(cfg)
-    raise _unported(kind)
+    if kind == "mlstm":
+        return _mlstm_specs(cfg)
+    if kind == "slstm":
+        return _slstm_specs(cfg)
+    raise _unknown(kind)
 
 
 def map_tree(fn, tree, path=()):
@@ -194,7 +211,6 @@ def group_layout(cfg: ArchConfig) -> Tuple[int, int]:
 
 
 def param_specs(cfg: ArchConfig) -> Params:
-    check_supported(cfg)
     dt = _dtype(cfg)
     n_per, n_rem = group_layout(cfg)
     specs: Params = {"embed": TensorSpec((cfg.vocab, cfg.d_model), dt)}
@@ -236,8 +252,15 @@ def init_params(rng: Union[int, torch.Generator], cfg: ArchConfig,
     from ``rng`` (a seed, or a :class:`torch.Generator` on that device).
     The draws are the port's own: to compute what a reference tree
     computes, carry it across with :func:`repro_torch.convert.lm_params`."""
-    dev = resolve_device(device)
-    specs = param_specs(cfg)
+    return draw_params(rng, param_specs(cfg), resolve_device(device))
+
+
+def draw_params(rng: Union[int, torch.Generator], specs: Params,
+                dev: torch.device) -> Params:
+    """A tree of ``specs``' shapes and types drawn on ``dev`` from ``rng``
+    leaf by leaf in key order, each by :func:`_init_leaf`'s rule for its
+    path (the reference's ``_init_leaf``, which its encoder–decoder's
+    ``init_params`` shares)."""
     if isinstance(rng, torch.Generator):
         gen = rng
         if gen.device.type != dev.type:
@@ -308,14 +331,24 @@ def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor
                          act=cfg.act), None
 
 
+def _rotate(cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor,
+            pos3: Optional[torch.Tensor]) -> torch.Tensor:
+    """M-RoPE where the config asks for it and 3-axis positions are
+    given, else RoPE (the reference's fallback)."""
+    if cfg.mrope and pos3 is not None:
+        return apply_mrope(x, pos3, theta=cfg.rope_theta)
+    return apply_rope(x, pos, theta=cfg.rope_theta)
+
+
 def _apply_attn_block(cfg: ArchConfig, kind: str, p: Params,
-                      x: torch.Tensor, pos: torch.Tensor):
+                      x: torch.Tensor, pos: torch.Tensor,
+                      pos3: Optional[torch.Tensor]):
     """Returns (x_out, aux loss or None, (k, v)); k/v exposed for prefill
     caching."""
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     q, k, v = _project_qkv(p, h)
-    q = apply_rope(q, pos, theta=cfg.rope_theta)
-    k = apply_rope(k, pos, theta=cfg.rope_theta)
+    q = _rotate(cfg, q, pos, pos3)
+    k = _rotate(cfg, k, pos, pos3)
     att = flash_attention(q, k, v, causal=True,
                           window=_window_for(cfg, kind),
                           softcap=cfg.attn_softcap)
@@ -342,15 +375,46 @@ def _apply_rglru_block(cfg: ArchConfig, p: Params,
     return _ffn(cfg, p, x)[0]
 
 
+def _mlstm_inputs(p: Params, h: torch.Tensor):
+    """q, k, v [B,S,H,hd] and the f32 log forget and input gates [B,S,H]
+    of an mLSTM block on its normed input h [B,S,D]."""
+    q, k, v = _project_qkv(p, h)
+    gates = einsum("bsd,dg->bsg", h.float(), p["w_if"])
+    log_i, log_f = gates.chunk(2, dim=-1)
+    return q, k, v, F.logsigmoid(log_f), log_i
+
+
+def _apply_mlstm_block(cfg: ArchConfig, p: Params,
+                       x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    q, k, v, log_f, log_i = _mlstm_inputs(p, h)
+    y = rec.mlstm_parallel(q, k, v, log_f, log_i, chunk=cfg.mlstm_chunk)
+    og = torch.sigmoid(einsum("bsd,de->bse", h, p["w_og"]))
+    out = einsum("bshe,hed->bsd", y, p["w_out"])
+    return x + (out * og).to(x.dtype)
+
+
+def _apply_slstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, rec.SLSTMState]:
+    """(x_out, the recurrence's final state)."""
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    y, state = rec.slstm_seq(h, p)
+    return x + y.to(x.dtype), state
+
+
 def apply_block(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
-                pos: torch.Tensor
+                pos: torch.Tensor, pos3: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x_out, the block's MoE aux loss or None)."""
     if kind in ATTN_KINDS:
-        return _apply_attn_block(cfg, kind, p, x, pos)[:2]
+        return _apply_attn_block(cfg, kind, p, x, pos, pos3)[:2]
     if kind == "rglru":
         return _apply_rglru_block(cfg, p, x), None
-    raise _unported(kind)
+    if kind == "mlstm":
+        return _apply_mlstm_block(cfg, p, x), None
+    if kind == "slstm":
+        return _apply_slstm_block(cfg, p, x)[0], None
+    raise _unknown(kind)
 
 
 def take(tree: Params, j: int) -> Params:
@@ -375,24 +439,37 @@ def _layers(cfg: ArchConfig, params: Params):
 # Forward path
 # ---------------------------------------------------------------------------
 
+def embed_tokens(params: Params, cfg: ArchConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embedding rows × sqrt(d_model), in the parameters'
+    type and on their device."""
+    emb = params["embed"]
+    x = emb[tokens.to(emb.device).long()]
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                            device=x.device)
+
+
 def embed_inputs(params: Params, cfg: ArchConfig,
                  batch: Dict[str, torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embeddings × sqrt(d_model) (in the parameters' type) and
-    positions [1, S] (or the batch's ``positions``)."""
-    check_supported(cfg)
-    if "embeds" in batch or "positions3" in batch:
-        raise NotImplementedError("embeds / positions3 inputs are not "
-                                  "ported yet (ROADMAP A.6)")
-    emb = params["embed"]
-    x = emb[batch["tokens"].to(emb.device).long()]
-    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                         device=x.device)
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor]]:
+    """(x [B,S,D], positions [1, S] (or the batch's ``positions``), the
+    batch's ``positions3`` [3,B,S] or None).  x is, for an ``embeds``
+    config, ``batch["embeds"]`` cast to the parameters' type and not
+    scaled; else the token embeddings × sqrt(d_model), in the parameters'
+    type.  Inputs move to the parameters' device."""
+    if cfg.input_mode == "embeds":
+        x = batch["embeds"].to(params["embed"].device, _dtype(cfg))
+    else:
+        x = embed_tokens(params, cfg, batch["tokens"])
     S = x.shape[1]
     pos = batch.get("positions")
     if pos is None:
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    return x, pos.to(x.device)
+    pos3 = batch.get("positions3")
+    if pos3 is not None:
+        pos3 = pos3.to(x.device)
+    return x, pos.to(x.device), pos3
 
 
 def unembed(params: Params, cfg: ArchConfig, x: torch.Tensor
@@ -411,10 +488,10 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. Returns (logits [B,S,V] f32, aux_loss: the
     sum of the MoE layers' aux losses in layer order, 0 without MoE)."""
-    x, pos = embed_inputs(params, cfg, batch)
+    x, pos, pos3 = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, kind, p in _layers(cfg, params):
-        x, a = apply_block(cfg, kind, p, x, pos)
+        x, a = apply_block(cfg, kind, p, x, pos, pos3)
         if a is not None:
             aux = aux + a
     return unembed(params, cfg, x), aux
@@ -440,12 +517,19 @@ def _block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
         Dr, K = cfg.d_rec_actual, cfg.conv_width
         return {"h": TensorSpec((batch, Dr), torch.float32),
                 "conv": TensorSpec((batch, K - 1, Dr), dt)}
-    raise _unported(kind)
+    if kind == "mlstm":
+        H, hd = cfg.n_heads, cfg.head_dim
+        return {"S": TensorSpec((batch, H, hd, hd), torch.float32),
+                "n": TensorSpec((batch, H, hd), torch.float32),
+                "m": TensorSpec((batch, H), torch.float32)}
+    if kind == "slstm":
+        return {k: TensorSpec((batch, cfg.d_model), torch.float32)
+                for k in ("c", "n", "h", "m")}
+    raise _unknown(kind)
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> Params:
     """Decode-state tree: shapes and types of every leaf."""
-    check_supported(cfg)
     n_per, n_rem = group_layout(cfg)
     cache: Params = {"blocks": {
         f"p{i}_{kind}": _stack(_block_cache_specs(cfg, kind, batch, max_seq),
@@ -455,14 +539,6 @@ def cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> Params:
         cache["rem"] = {f"r{i}_{cfg.block_pattern[i]}": _block_cache_specs(
             cfg, cfg.block_pattern[i], batch, max_seq) for i in range(n_rem)}
     return cache
-
-
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               device: DeviceLike = "cuda") -> Params:
-    dev = resolve_device(device)
-    return map_tree(
-        lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
-        cache_specs(cfg, batch, max_seq))
 
 
 def _assemble(cfg: ArchConfig, per_layer: Dict[str, list],
@@ -486,13 +562,14 @@ def _assemble(cfg: ArchConfig, per_layer: Dict[str, list],
 # ---------------------------------------------------------------------------
 
 def _decode_attn(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor,
-                 pos: int) -> Tuple[torch.Tensor, Params]:
+                 pos: int, pos3: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Params]:
     """x [B,1,D]; ring-buffer cache write + masked attention."""
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     q, k, v = _project_qkv(p, h)
     pos_t = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos_t, theta=cfg.rope_theta)
-    k = apply_rope(k, pos_t, theta=cfg.rope_theta)
+    q = _rotate(cfg, q, pos_t, pos3)
+    k = _rotate(cfg, k, pos_t, pos3)
     L = c["k"].shape[1]
     slot = pos % L
     kc, vc = c["k"].clone(), c["v"].clone()
@@ -515,21 +592,49 @@ def _decode_rglru(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor
                                 "conv": st.conv.to(c["conv"].dtype)}
 
 
+def _decode_mlstm(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Params]:
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    q, k, v, log_f, log_i = (t[:, 0] for t in _mlstm_inputs(p, h))
+    y, st = rec.mlstm_step(q, k, v, log_f, log_i,
+                           rec.MLSTMState(c["S"], c["n"], c["m"]))
+    og = torch.sigmoid(einsum("bd,de->be", h[:, 0], p["w_og"]))
+    out = einsum("bhe,hed->bd", y, p["w_out"]) * og
+    return (x + out[:, None, :].to(x.dtype),
+            {"S": st.S, "n": st.n, "m": st.m})
+
+
+def _decode_slstm(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Params]:
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    y, (cn, nn, hn, mn) = rec.slstm_seq(h[:, :1], p, state=(
+        c["c"], c["n"], c["h"], c["m"]))
+    return x + y.to(x.dtype), {"c": cn, "n": nn, "h": hn, "m": mn}
+
+
 def _decode_block(cfg: ArchConfig, kind: str, p: Params, c: Params,
-                  x: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Params]:
+                  x: torch.Tensor, pos: int, pos3: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Params]:
     if kind in ATTN_KINDS:
-        return _decode_attn(cfg, p, c, x, pos)
+        return _decode_attn(cfg, p, c, x, pos, pos3)
     if kind == "rglru":
         return _decode_rglru(cfg, p, c, x)
-    raise _unported(kind)
+    if kind == "mlstm":
+        return _decode_mlstm(cfg, p, c, x)
+    if kind == "slstm":
+        return _decode_slstm(cfg, p, c, x)
+    raise _unknown(kind)
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Params,
                 batch: Dict[str, Any]) -> Tuple[torch.Tensor, Params]:
-    """One decode step. batch: tokens [B,1] and pos (current absolute
-    position: an int or a one-element tensor).  Returns (logits [B,1,V],
-    new cache); the old cache is left as it was."""
-    x, _ = embed_inputs(params, cfg, {"tokens": batch["tokens"]})
+    """One decode step. batch: tokens [B,1] (or, for an ``embeds`` config,
+    embeds [B,1,D]), pos (current absolute position: an int or a
+    one-element tensor) and optionally positions3 [3,B,1].  Returns
+    (logits [B,1,V], new cache); the old cache is left as it was."""
+    x, _, pos3 = embed_inputs(params, cfg, {
+        k: batch[k] for k in ("tokens", "embeds", "positions3")
+        if k in batch})
     pos = batch["pos"]
     pos = int(pos.reshape(-1)[0]) if isinstance(pos, torch.Tensor) \
         else int(pos)
@@ -538,7 +643,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Params,
     for (group, j), key, kind, p in _layers(cfg, params):
         c = (take(cache["blocks"][key], j) if group == "blocks"
              else cache["rem"][key])
-        x, nc = _decode_block(cfg, kind, p, c, x, pos)
+        x, nc = _decode_block(cfg, kind, p, c, x, pos, pos3)
         if group == "blocks":
             per_layer.setdefault(key, []).append(nc)
         else:
@@ -556,15 +661,19 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     """Process a prompt of length S; returns (logits [B,S,V], filled cache)
     sized ``max_seq`` (ring-buffered for local attention), exactly as the
     reference fills it: a local-attention cache holds the last L positions
-    at slot pos % L, a recurrent one the last state and the last K-1
-    pre-conv inputs."""
-    x, pos = embed_inputs(params, cfg, batch)
+    at slot pos % L, an RG-LRU one the last state and the last K-1
+    pre-conv inputs, an sLSTM one the recurrence's final state.  An
+    mLSTM block's state is recomputed by the reference's sequential
+    :func:`~repro_torch.models.recurrent.mlstm_step` loop over the S
+    positions (one step a position on the host), not from the chunked
+    form, so that the cache is the reference's."""
+    x, pos, pos3 = embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     per_layer: Dict[str, list] = {}
     rem: Params = {}
     for (group, _), key, kind, p in _layers(cfg, params):
         if kind in ATTN_KINDS:
-            x, _, (k, v) = _apply_attn_block(cfg, kind, p, x, pos)
+            x, _, (k, v) = _apply_attn_block(cfg, kind, p, x, pos, pos3)
             L = _cache_len_for(cfg, kind, max_seq)
             if S >= L:
                 # the ring holds the last L positions, aligned to pos % L
@@ -585,8 +694,25 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                                       for i in range(K - 1)], dim=1)
             # a copy, so the cache does not keep the whole of hs alive
             c = {"h": hs[:, -1].float().clone(), "conv": conv_state}
+        elif kind == "mlstm":
+            h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+            x_out = _apply_mlstm_block(cfg, p, x)
+            q, k, v, log_f, log_i = _mlstm_inputs(p, h)
+            H, hd = cfg.n_heads, cfg.head_dim
+            f32 = dict(dtype=torch.float32, device=x.device)
+            st = rec.MLSTMState(torch.zeros((B, H, hd, hd), **f32),
+                                torch.zeros((B, H, hd), **f32),
+                                torch.zeros((B, H), **f32))
+            for t in range(S):
+                _, st = rec.mlstm_step(q[:, t], k[:, t], v[:, t],
+                                       log_f[:, t], log_i[:, t], st)
+            x = x_out
+            c = {"S": st.S, "n": st.n, "m": st.m}
+        elif kind == "slstm":
+            x, (cn, nn, hn, mn) = _apply_slstm_block(cfg, p, x)
+            c = {"c": cn, "n": nn, "h": hn, "m": mn}
         else:
-            raise _unported(kind)
+            raise _unknown(kind)
         if group == "blocks":
             per_layer.setdefault(key, []).append(c)
         else:

@@ -10,6 +10,12 @@ the other slots' KV rings and RG-LRU states, and a tick decodes every
 active slot at the largest active position: a request's tokens depend on
 its neighbours (ROADMAP C lists this reference-side fault; the port keeps
 it so that both engines give the same tokens).
+
+An ``embeds`` config (qwen2-vl) is fed, as in the reference, the rows of
+``params["embed"]`` for its tokens, unscaled, and no ``positions3``:
+its attention then rotates by plain RoPE.  An encoder–decoder config is
+refused, as the reference's engine refuses it; it is served through
+``encdec.init_cache_from_encoder`` and ``encdec.decode_step``.
 """
 from __future__ import annotations
 
@@ -41,8 +47,10 @@ class ServingEngine:
                  max_seq: int = 256, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if cfg.encdec:
-            raise NotImplementedError("encoder-decoder serving is not "
-                                      "ported yet (ROADMAP A.6)")
+            raise ValueError("ServingEngine serves decoder-only models; an "
+                             "encoder-decoder model decodes through "
+                             "encdec.init_cache_from_encoder and "
+                             "encdec.decode_step")
         for path, leaf in transformer.leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"ServingEngine on {self.device}: parameter "
@@ -67,8 +75,11 @@ class ServingEngine:
                 self._prefill_slot(s, self.queue.pop(0))
 
     def _decode(self, tokens: np.ndarray, pos: int) -> torch.Tensor:
-        batch = {"tokens": torch.as_tensor(tokens, device=self.device),
-                 "pos": pos}
+        toks = torch.as_tensor(tokens, device=self.device)
+        if self.cfg.input_mode == "embeds":
+            batch = {"embeds": self.params["embed"][toks.long()], "pos": pos}
+        else:
+            batch = {"tokens": toks, "pos": pos}
         logits, self.cache = api.decode_step(self.params, self.cfg,
                                              self.cache, batch)
         return logits

@@ -1,11 +1,16 @@
 """The port's language models (configs, layers, the RG-LRU block,
 forward, prefill, decode) against the JAX package at ``REDUCED`` sizes in
-float32, weights carried across with ``convert.lm_params``: every ported
-arch, recurrentgemma-9b (RG-LRU and local attention), olmo-1b (dense,
-non-parametric norm), granite-moe-3b-a800m and qwen2-moe-a2.7b (mixture
-of experts; :mod:`tests.test_torch_moe` holds the MoE layer itself).
-recurrentgemma-9b's cases keep the ids they had when it was the only
-arch; the others' ids start with the arch.
+float32, weights carried across with ``convert.lm_params``: every
+decoder-only arch — recurrentgemma-9b (RG-LRU and local attention),
+olmo-1b (dense, non-parametric norm), granite-moe-3b-a800m and
+qwen2-moe-a2.7b (mixture of experts; :mod:`tests.test_torch_moe` holds the
+MoE layer itself), gemma2-2b (alternating windows, soft-caps), granite-8b
+and llama3-405b (GQA), xlstm-125m (mLSTM/sLSTM; :mod:`tests.test_torch_xlstm`
+holds the recurrences themselves) and qwen2-vl-7b (``embeds`` inputs with
+3-axis ``positions3``, M-RoPE).  seamless-m4t-medium's encoder–decoder is
+in :mod:`tests.test_torch_encdec`; its configs and its ``lm_params`` are
+held here.  recurrentgemma-9b's cases keep the ids they had when it was
+the only arch; the others' ids start with the arch.
 
 Every call into the JAX package is pinned to its CPU backend at "highest"
 matmul precision (``tests/_torch_jax_ref.py``).  Tolerances, unless a
@@ -46,8 +51,14 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 ELEM = dict(rtol=1e-6, atol=1e-6)
 
 
-def _cases(*values, archs=registry.ARCH_IDS):
-    """Parameters (arch, *value) for every ported arch and value;
+#: the decoder-only archs (every arch but seamless-m4t-medium), in the
+#: registry's order
+DECODERS = tuple(a for a in registry.ARCH_IDS
+                 if not registry.get_config(a).encdec)
+
+
+def _cases(*values, archs=DECODERS):
+    """Parameters (arch, *value) for every decoder-only arch and value;
     recurrentgemma-9b's ids are the value's alone, as before the other
     archs were ported."""
     out = []
@@ -84,6 +95,30 @@ def _toks(b, s, seed, vocab=256):
         np.int32)
 
 
+def _inputs(cfg, b, s, seed):
+    """A numpy batch of ``s`` positions: tokens, or for an ``embeds``
+    config (qwen2-vl) embeddings and ``positions3`` whose three axes
+    differ (text positions, then a patch grid's rows and columns)."""
+    if cfg.input_mode != "embeds":
+        return {"tokens": _toks(b, s, seed)}
+    rng = np.random.default_rng(seed)
+    t = np.arange(s)
+    p3 = np.stack([t, t // 4 + 1, t % 4 + 2 * (t // 8)])
+    p3 = (p3[:, None, :] + np.arange(b)[None, :, None]).astype(np.int32)
+    return {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(
+        np.float32), "positions3": p3}
+
+
+def _part(batch, sl):
+    """The batch's positions ``sl``."""
+    return {k: v[:, :, sl] if k == "positions3" else v[:, sl]
+            for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: _t(v) for k, v in batch.items()}
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -102,7 +137,8 @@ def _leaf(tree, path):
 # configs, specs, parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch, reduced", _cases(False, True))
+@pytest.mark.parametrize("arch, reduced", _cases(
+    False, True, archs=registry.ARCH_IDS))
 def test_configs_match_the_reference(arch, reduced):
     cfg = registry.get_config(arch, reduced=reduced)
     rcfg = rreg.get_config(arch, reduced=reduced)
@@ -121,11 +157,10 @@ def test_full_config_layout():
     assert kinds.count("rglru") == 26 and kinds.count("attn") == 12
 
 
-@pytest.mark.parametrize("arch", [a for a in rreg.ARCH_IDS
-                                  if a not in registry.ARCH_IDS])
-def test_other_architectures_are_not_ported_yet(arch):
-    with pytest.raises(KeyError, match="ROADMAP A.6"):
-        registry.get_config(arch)
+def test_arch_ids_equal_the_reference():
+    assert registry.ARCH_IDS == rreg.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch, reduced", _cases(False, True))
@@ -181,7 +216,8 @@ def test_init_params_follow_the_reference_rules():
     assert abs(float(blk["w_gate"].float().std()) / want - 1) < 0.1
 
 
-@pytest.mark.parametrize("arch, dtype", _cases("float32", "bfloat16"))
+@pytest.mark.parametrize("arch, dtype", _cases(
+    "float32", "bfloat16", archs=registry.ARCH_IDS))
 def test_lm_params_carries_every_leaf_bit_for_bit(arch, dtype):
     cfg, rcfg = _cfgs(dtype, arch)
     rp = ref(lambda: rapi.init_params(jax.random.PRNGKey(1), rcfg))
@@ -200,21 +236,20 @@ def test_lm_params_carries_every_leaf_bit_for_bit(arch, dtype):
         convert.lm_params(rp, cfg, "cpu")
 
 
-@pytest.mark.parametrize("change, what", [
-    (dict(block_pattern=("mlstm",)), "mlstm"),
-    (dict(mrope=True), "M-RoPE"),
-    (dict(input_mode="embeds"), "embeds"),
-    (dict(encdec=True, n_enc_layers=1, n_dec_layers=1), "encoder-decoder")],
-    # the ids the cases had beside the MoE case (change1), ported since
-    ids=["change0-mlstm", "change2-M-RoPE", "change3-embeds",
-         "change4-encoder-decoder"])
-def test_blocks_not_ported_yet_raise(change, what):
-    cfg = registry.get_config(ARCH, reduced=True).replace(**change)
-    with pytest.raises(NotImplementedError, match=what):
-        api.param_specs(cfg) if what != "encoder-decoder" else \
-            api.init_params(0, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        tf.cache_specs(cfg, 1, 8)
+def test_unknown_block_kind_raises_as_the_reference():
+    """A block kind no model has raises ``ValueError`` naming it, in the
+    parameter specs and the cache specs, as the reference's does."""
+    cfg = registry.get_config(ARCH, reduced=True).replace(
+        block_pattern=("attn", "conv9"))
+    rcfg = rreg.get_config(ARCH, reduced=True).replace(
+        block_pattern=("attn", "conv9"))
+    for fn, rfn in ((tf.param_specs, rtf.param_specs),
+                    (lambda c: tf.cache_specs(c, 1, 8),
+                     lambda c: rtf.cache_specs(c, 1, 8))):
+        with pytest.raises(ValueError, match="conv9"):
+            ref(rfn, rcfg)
+        with pytest.raises(ValueError, match="conv9"):
+            fn(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +274,23 @@ def test_rope():
     for theta in (10_000.0, 500.0):
         want = ref(rl.apply_rope, x, pos, theta)
         _close(pl.apply_rope(_t(x), _t(pos), theta), want, ELEM)
+
+
+@pytest.mark.parametrize("head_dim, sections", [
+    (16, (1, 1, 2)), (128, (1, 1, 2)), (20, (2, 3, 3)), (10, (1, 1, 1))])
+def test_mrope(head_dim, sections):
+    """The reference's band sizes (``half * s // total``, the last band
+    the rest) with three unequal axes; with the axes equal, plain RoPE."""
+    rng = np.random.default_rng(head_dim)
+    x = rng.standard_normal((2, 9, 3, head_dim)).astype(np.float32)
+    p3 = rng.integers(0, 4000, (3, 2, 9)).astype(np.int32)
+    for theta in (10_000.0, 1_000_000.0):
+        want = ref(rl.apply_mrope, x, p3, sections, theta)
+        _close(pl.apply_mrope(_t(x), _t(p3), sections, theta), want, ELEM)
+    pos = np.stack([np.arange(4, 13)] * 2).astype(np.int32)
+    same = np.stack([pos] * 3)
+    _close(pl.apply_mrope(_t(x), _t(same), sections),
+           pl.apply_rope(_t(x), _t(pos)).numpy(), ELEM)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])
@@ -314,10 +366,9 @@ def test_rglru_gates_block_and_step():
 def test_forward(arch, s):
     """Logits and the aux loss (the MoE layers' sum; 0 without MoE)."""
     cfg, rcfg, rp, p = _model(arch)
-    toks = _toks(2, s, s)
-    want, want_aux = ref(rtf.forward, rp, rcfg, {"tokens": toks},
-                         remat=False)
-    got, aux = api.forward(p, cfg, {"tokens": _t(toks)})
+    batch = _inputs(cfg, 2, s, s)
+    want, want_aux = ref(rtf.forward, rp, rcfg, batch, remat=False)
+    got, aux = api.forward(p, cfg, _torch(batch))
     assert got.dtype == torch.float32 and aux.dtype == torch.float32
     _close(got, want)
     _close(aux, want_aux)
@@ -333,10 +384,9 @@ def test_prefill_logits_and_cache(arch, s, max_seq):
     shorter than the prompt keeps its last max_seq positions, as the
     reference's does)."""
     cfg, rcfg, rp, p = _model(arch)
-    toks = _toks(2, s, s + max_seq)
-    want, wcache = ref(rtf.prefill, rp, rcfg, {"tokens": toks},
-                       max_seq=max_seq)
-    got, cache = tf.prefill(p, cfg, {"tokens": _t(toks)}, max_seq=max_seq)
+    batch = _inputs(cfg, 2, s, s + max_seq)
+    want, wcache = ref(rtf.prefill, rp, rcfg, batch, max_seq=max_seq)
+    got, cache = tf.prefill(p, cfg, _torch(batch), max_seq=max_seq)
     _close(got, want)
     specs = tf.cache_specs(cfg, 2, max_seq)
     assert {pth for pth, _ in tf.leaves(cache)} == {
@@ -354,17 +404,16 @@ def test_prefill_then_decode_equals_prefill_and_the_reference(arch, s):
     MoE assignment is dropped at these sizes), and the decode step equals
     the reference's."""
     cfg, rcfg, rp, p = _model(arch)
-    toks = _toks(2, s, s + 1)
-    full, _ = tf.prefill(p, cfg, {"tokens": _t(toks)}, max_seq=s)
-    _, cache = tf.prefill(p, cfg, {"tokens": _t(toks[:, :-1])}, max_seq=s)
-    dec = {"tokens": _t(toks[:, -1:]), "pos": s - 1}
-    got, new_cache = api.decode_step(p, cfg, cache, dec)
+    batch = _inputs(cfg, 2, s, s + 1)
+    head, last = _part(batch, slice(None, -1)), _part(batch, slice(-1, None))
+    full, _ = tf.prefill(p, cfg, _torch(batch), max_seq=s)
+    _, cache = tf.prefill(p, cfg, _torch(head), max_seq=s)
+    got, new_cache = api.decode_step(p, cfg, cache,
+                                     dict(_torch(last), pos=s - 1))
     assert float((got[:, 0] - full[:, -1]).abs().max()) < 5e-5
-    _, rcache = ref(rtf.prefill, rp, rcfg, {"tokens": toks[:, :-1]},
-                    max_seq=s)
+    _, rcache = ref(rtf.prefill, rp, rcfg, head, max_seq=s)
     want, rnew = ref(rtf.decode_step, rp, rcfg, rcache,
-                     {"tokens": toks[:, -1:],
-                      "pos": np.array([s - 1], np.int32)})
+                     dict(last, pos=np.array([s - 1], np.int32)))
     _close(got, want)
     for path, leaf in tf.leaves(new_cache):
         _close(leaf, _leaf(rnew, path))
@@ -376,18 +425,19 @@ def test_greedy_decode_tokens():
     _greedy(ARCH)
 
 
-@pytest.mark.parametrize("arch", [a for a in registry.ARCH_IDS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in DECODERS if a != ARCH])
 def test_greedy_decode_tokens_of_each_arch(arch):
     _greedy(arch)
 
 
 def _greedy(arch):
+    """An ``embeds`` config is fed its greedy token's (unscaled) embedding
+    row, its three positions continuing one past the prompt's largest."""
     cfg, rcfg, rp, p = _model(arch)
-    toks = _toks(2, 20, 3)
+    batch = _inputs(cfg, 2, 20, 3)
     max_seq = 40
-    logits, cache = tf.prefill(p, cfg, {"tokens": _t(toks)}, max_seq)
-    rlogits, rcache = ref(rtf.prefill, rp, rcfg, {"tokens": toks},
-                          max_seq=max_seq)
+    logits, cache = tf.prefill(p, cfg, _torch(batch), max_seq)
+    rlogits, rcache = ref(rtf.prefill, rp, rcfg, batch, max_seq=max_seq)
     nxt = logits[:, -1].argmax(-1)
     rnxt = rlogits[:, -1].argmax(-1)
     mine, theirs = [], []
@@ -395,12 +445,21 @@ def _greedy(arch):
         assert nxt.tolist() == rnxt.tolist(), i
         mine.append(nxt.tolist())
         theirs.append(rnxt.tolist())
-        pos = toks.shape[1] + i
-        lg, cache = api.decode_step(p, cfg, cache, {
-            "tokens": nxt[:, None].int(), "pos": torch.tensor([pos])})
-        rlg, rcache = ref(rtf.decode_step, rp, rcfg, rcache, {
-            "tokens": rnxt[:, None].astype(np.int32),
-            "pos": np.array([pos], np.int32)})
+        pos = 20 + i
+        if cfg.input_mode == "embeds":
+            p3 = batch["positions3"].max(axis=(0, 2))[None, :, None] + 1 + i
+            p3 = np.repeat(p3, 3, axis=0).astype(np.int32)
+            step = {"embeds": rp["embed"][rnxt][:, None],
+                    "positions3": p3}
+            mine_step = {"embeds": p["embed"][nxt][:, None],
+                         "positions3": _t(p3)}
+        else:
+            step = {"tokens": rnxt[:, None].astype(np.int32)}
+            mine_step = {"tokens": nxt[:, None].int()}
+        lg, cache = api.decode_step(p, cfg, cache, dict(
+            mine_step, pos=torch.tensor([pos])))
+        rlg, rcache = ref(rtf.decode_step, rp, rcfg, rcache, dict(
+            step, pos=np.array([pos], np.int32)))
         _close(lg, rlg)
         nxt, rnxt = lg[:, 0].argmax(-1), rlg[:, 0].argmax(-1)
     assert mine == theirs

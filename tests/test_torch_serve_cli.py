@@ -47,7 +47,13 @@ def _lines(text):
     return m.groups(), lines[1:]
 
 
-@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+#: the archs the CLI serves: token LMs, not encoder-decoder or embeds
+TOKEN_ARCHS = tuple(a for a in registry.ARCH_IDS
+                    if not registry.get_config(a).encdec
+                    and registry.get_config(a).input_mode == "tokens")
+
+
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_cli_prints_the_reference_tokens(arch, monkeypatch, capsys):
     monkeypatch.setattr(rserve, "get_config", _f32(rreg.get_config))
     monkeypatch.setattr(serve, "get_config", _f32(registry.get_config))
@@ -119,10 +125,29 @@ def test_cli_refuses_encdec_and_embeds_archs(change, monkeypatch):
 
 
 def test_cli_refuses_an_arch_the_port_lacks(capsys):
+    """An arch outside the registry is argparse's invalid choice; the
+    choices it names are the reference's ten archs."""
     with pytest.raises(SystemExit) as err:
-        serve.main(["--arch", "xlstm-125m", "--torch-device", "cpu"])
+        serve.main(["--arch", "no-such-arch", "--torch-device", "cpu"])
     assert err.value.code == 2
-    assert "invalid choice" in capsys.readouterr().err
+    msg = capsys.readouterr().err
+    assert "invalid choice" in msg
+    choices = msg.split("choose from ")[1].split(")")[0]
+    assert tuple(c.strip("' ") for c in choices.split(",")) == rreg.ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-medium"])
+def test_cli_refuses_the_embeds_and_encdec_archs_as_the_reference(
+        arch, monkeypatch):
+    """The reference's message, from both CLIs, before any weights are
+    drawn."""
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch])
+    with pytest.raises(SystemExit, match="targets token-LM archs") as want:
+        rserve.main()
+    monkeypatch.setattr(serve.api, "init_params", lambda *a: 1 / 0)
+    with pytest.raises(SystemExit) as got:
+        serve.main(["--arch", arch, "--torch-device", "cpu"])
+    assert str(got.value) == str(want.value)
 
 
 def test_cli_requests_follow_the_reference_prompts(capsys):

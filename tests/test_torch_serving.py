@@ -9,6 +9,10 @@ slots interfere (every prompt step and tick runs the whole batch at one
 shared position, writing every slot's KV ring and RG-LRU state): the port
 keeps that behaviour, so its tokens still equal the reference's, and a
 request's tokens beside a neighbour differ from its tokens alone.
+
+qwen2-vl-7b, an ``embeds`` config, goes through the same engines: each
+step feeds the unscaled rows of ``params["embed"]`` for the tokens, as the
+reference's ``_batch_for`` does.
 """
 import numpy as np
 import pytest
@@ -115,3 +119,21 @@ def test_engine_refuses_parameters_on_another_device(model):
     meta = tf.map_tree(lambda _, x: x.to("meta"), p)
     with pytest.raises(ValueError, match="is on meta"):
         ServingEngine(cfg, meta, n_slots=1, max_seq=8, device="cpu")
+
+
+def test_embeds_engine_tokens_equal_the_reference():
+    """Reduced qwen2-vl-7b in float32, 2 slots, prompts shorter and
+    longer than each other: the port's tokens and ticks are the
+    reference's."""
+    arch = "qwen2-vl-7b"
+    cfg = registry.get_config(arch, reduced=True).replace(
+        param_dtype="float32")
+    rcfg = rreg.get_config(arch, reduced=True).replace(param_dtype="float32")
+    rp = ref(lambda: rapi.init_params(jax.random.PRNGKey(0), rcfg))
+    p = convert.lm_params(rp, cfg, "cpu")
+    spec = [(8, 6), (3, 5), (5, 4)]
+    prompts = _prompts(spec, 3)
+    want, want_ticks = _reference(rcfg, rp, 2, 32, prompts, spec)
+    got, ticks = _port(cfg, p, 2, 32, prompts, spec)
+    assert got == want and ticks == want_ticks
+    assert [len(g) for g in got] == [m for _, m in spec]
