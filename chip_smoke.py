@@ -5,9 +5,10 @@
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the checkout's ``src/``.  Phases, each of which fails the run:
 
-1. print the card's name and power limit, build the eight CUDA sources
-   of the seven kernels (``flash_attention`` has two routes; one ``nvcc``
-   each, started together) and print their registers and spills;
+1. print the card's name and power limit, build the ten CUDA sources of
+   the ten kernels (``flash_attention`` has two routes, its backward
+   kernels B2 and B3 share a source; one ``nvcc`` each, started
+   together) and print their registers and spills;
 2. hold the monitor's two kernels against their plain PyTorch versions on
    the card, at small adversarial shapes (among them the grid kernel's
    128-column tile edges and odd M on odd D, so that every other row is
@@ -204,7 +205,35 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    CLI's refusal of qwen2-vl-7b and seamless-m4t-medium with the
    reference's message, and a full-width qwen2-vl-7b ``ServingEngine``
    of 2 slots answering 2 requests through the ``embeds`` path (14d).
-   The phase logs its wall.
+   The phase logs its wall;
+15. training, after phase 14: the three backward kernels against their
+   plain versions, ``rglru_scan_bwd`` bitwise at adversarial shapes and
+   at [2, 3000, 4096], ``flash_attention_bwd``'s B2 and B3 within
+   ``BWD_TOL`` of each type at 12 adversarial shapes in f32, f16 and
+   bf16 (one query, ragged tiles, windows at the tile edges, rows that
+   see no key, G = 1, 3, 7, 16, head_dims 64, 80, 128, 256, soft-cap,
+   non-causal, T != S; the plain backward given ``blocked_attention``'s
+   output, the kernels the forward kernel's), then at the training shapes
+   (olmo-1b's [4, 2048, 16, 128], recurrentgemma-9b's MQA 16:1 at 256 in
+   a 2048 window) and at gemma2-2b's soft-capped and seamless's two, the
+   forward kernel first held to ``blocked_attention`` within
+   ``FLASH_MAIN_REL_L2`` at each, each backward kernel timed
+   beside its bound, the plain backward and the backward of
+   ``scaled_dot_product_attention`` (or of compiled ``flex_attention``
+   where soft-capped) (15a); one train step's loss and gradients at
+   ``REDUCED`` in f32 on the card and the CPU for olmo-1b and
+   recurrentgemma-9b (15b); ``python -m repro_torch.launch.train --arch
+   olmo-1b --steps 8 --seq-len 2048 --batch 4 --sensor h100_instant`` at
+   full width through the CLI's ``main`` in this process (finite loss and
+   gradient norm at every step, the last loss below the first, 32
+   forward launches on the tensor cores and 16 of each backward kernel a
+   step; peak memory, median step ms, tokens/s and the simulated
+   ledger's J/step logged), then the reduced CLI in a subprocess (15c);
+   recurrentgemma-9b at full width, 3 of its 38 layers, 4 steps of 2 x
+   3000 tokens through ``run_training``, the same gates, 4 + 2 forward
+   and 2 + 1 + 1 backward launches a step (15d); a restart on the card at
+   ``REDUCED``, 10 + checkpoint + 10 steps against 20 straight, the final
+   losses within 1e-4 (15e).  The phase logs its wall.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -500,6 +529,54 @@ VL_SERVE_SLOTS = 2
 VL_SERVE_REQUESTS = 2
 VL_SERVE_PROMPT = 8
 VL_SERVE_NEW = 8
+#: phase 15, training: olmo-1b at full width through the training CLI,
+#: 8 steps of 4 x 2048 tokens with the h100_instant sensor model, the
+#: CLI's learning rate (3e-3, warmup max(steps // 10, 1) = 1 step)
+TRAIN_ARCH = "olmo-1b"
+TRAIN_STEPS = 8
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 4
+TRAIN_SENSOR = "h100_instant"
+TRAIN_LR = 3e-3
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+              "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+              "--sensor", TRAIN_SENSOR]
+#: 15c: the CLI's reduced olmo-1b on the card, in a subprocess
+TRAIN_CLI_REDUCED = ["--reduced", "--steps", "4", "--seq-len", "64",
+                     "--batch", "2"]
+#: 15d: recurrentgemma-9b at full width and 3 of its 38 layers (one
+#: period: rglru, rglru, attn; 1.65 B parameters), the one cut: the whole
+#: model's 9.0 B parameters need ~108 GB with their gradients and f32
+#: moments, one card has 80 GB; 4 steps of 2 x 3000 tokens (the
+#: recurrence's and attention's shapes of phase 8)
+RG_LAYERS = 3
+RG_BATCH = LM_BATCH
+RG_SEQ = LM_PROMPT
+RG_STEPS = 4
+#: 15a: attention's backward at the training shapes (olmo-1b's, and
+#: recurrentgemma-9b's MQA 16:1 at head_dim 256 in a 2048 window), then
+#: gemma2-2b's soft-capped and seamless's two from NEW_ATTN_SHAPES
+TRAIN_ATTN_SHAPES = (
+    ("olmo-1b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 128, True,
+     0, 0.0),
+    ("recurrentgemma-9b train", RG_BATCH, RG_SEQ, RG_SEQ, 16, 1, 256, True,
+     LM_WINDOW, 0.0)) + tuple(
+    row for row in NEW_ATTN_SHAPES
+    if row[0].startswith(("gemma2", "seamless")))
+#: the backward kernels against the plain backward, by type, relative to
+#: the plain gradient's largest |value|, or absolute where that is below
+#: 1 (a gradient that cancels to ~0, as dq where a query sees one key,
+#: on standard normal inputs): f32 the order of the f32 sums (over up to
+#: T keys or S queries), f16 and bf16 one rounding of each gradient to
+#: the type on top of the inputs' own
+BWD_TOL = {torch.float32: 1e-4, torch.float16: 4e-3, torch.bfloat16: 2e-2}
+#: 15b: a train step's loss and each gradient leaf, card against CPU at
+#: REDUCED in f32: the order of f32 sums in products and attention
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL_L2 = 1e-4
+#: 15e: restart against a straight run, the reference test's bar
+RESTART_REL = 1e-4
+TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "chip_train_ckpt")
 
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
                 ("rtx3090_instant", 0.100))
@@ -802,10 +879,14 @@ def main() -> int:
     later += list(moe_serving(dev).items())
     torch.cuda.empty_cache()
     later += list(new_archs(dev).items())
+    torch.cuda.empty_cache()
+    train_records, train_extras = training(dev)
+    results.extend(train_records)
+    later += list(train_extras.items())
     for name, extra in later:
         rec = by_name[name]
-        err = max(v for k, v in extra.items() if k.startswith("max_abs_err"))
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        errs = [v for k, v in extra.items() if k.startswith("max_abs_err")]
+        rec["max_abs_err"] = max([rec["max_abs_err"]] + errs)
         rec.update(extra)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)        # again near the end, where a tail of the output shows it
@@ -3199,19 +3280,18 @@ def flash_cuda_cores_ms(q, k, v, kw, want):
                              f"q {list(q.shape)} {q.dtype} {kw}"))
 
 
-def sdpa_ms(q, k, v, window, causal=True):
-    """``scaled_dot_product_attention``'s time on the same function: a
-    causal sliding-window boolean mask (``is_causal`` where the window is
-    0; no mask where ``causal`` is False and the window 0), the KV head
-    shared by the group (``enable_gqa``; where this PyTorch lacks it, K
-    and V expanded to every head before the clock).  Returns (ms, largest
-    difference from flash_attention's output, how the group's KV head was
-    shared)."""
+def sdpa_call(q, k, v, window, causal=True):
+    """``scaled_dot_product_attention`` set up for the same function as
+    ``flash_attention(q, k, v, causal=causal, window=window)``: a causal
+    sliding-window boolean mask (``is_causal`` where the window is 0; no
+    mask where ``causal`` is False and the window 0), the KV head shared
+    by the group (``enable_gqa``; where this PyTorch lacks it, K and V
+    expanded to every head).  Returns (run, its head-first q, k, v, how
+    the group's KV head was shared); ``run(q, k, v)`` gives [B, Hq, S, D]."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
     s, t = q.shape[1], k.shape[1]
     if window > 0:
-        check(causal, "sdpa_ms: a window without causal masking")
+        check(causal, "sdpa_call: a window without causal masking")
         pos_q = torch.arange(s, device=q.device)[:, None]
         pos_k = torch.arange(t, device=q.device)[None, :]
         masking = dict(attn_mask=(pos_k <= pos_q) & (pos_k > pos_q - window))
@@ -3229,29 +3309,37 @@ def sdpa_ms(q, k, v, window, causal=True):
         vt = vt.repeat_interleave(g, dim=1)
         extra, how = {}, "K and V expanded"
 
-    def run():
+    def run(qt, kt, vt):
         return F.scaled_dot_product_attention(qt, kt, vt, **masking, **extra)
-    ms = time_ms(run, 5)
-    diff = float((run().transpose(1, 2).float() - flash_attention(
+    return run, (qt, kt, vt), how
+
+
+def sdpa_ms(q, k, v, window, causal=True):
+    """``scaled_dot_product_attention``'s time on the same function
+    (:func:`sdpa_call`).  Returns (ms, largest difference from
+    flash_attention's output, how the group's KV head was shared)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    run, ins, how = sdpa_call(q, k, v, window, causal)
+    ms = time_ms(lambda: run(*ins), 5)
+    diff = float((run(*ins).transpose(1, 2).float() - flash_attention(
         q, k, v, causal=causal, window=window).float()).abs().max())
     return ms, diff, how
 
 
-def flex_ms(q, k, v, window, causal, cap):
-    """``flex_attention``'s time on soft-capped attention, compiled as it
-    is meant to run (its Triton kernel built here by Inductor in this
-    process, its caches under build/): the cap a ``score_mod`` on the
-    scaled score, ``cap * tanh(score / cap)`` as the reference's
+def flex_call(q, k, v, window, causal, cap):
+    """``flex_attention`` compiled as it is meant to run (its Triton
+    kernels built here by Inductor in this process, its caches under
+    build/), set up for soft-capped attention: the cap a ``score_mod`` on
+    the scaled score, ``cap * tanh(score / cap)`` as the reference's
     ``_softcap``, the causal mask and the window a block mask, the KV head
-    shared by the group (``enable_gqa``).  Returns (ms, largest
-    difference from flash_attention's output, how it was called)."""
+    shared by the group (``enable_gqa``).  Returns (run, its head-first q,
+    k, v, how it was called); ``run(q, k, v)`` gives [B, Hq, S, D]."""
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
     import torch._inductor.config as inductor_config
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
-    from repro_torch.kernels.flash_attention import flash_attention
     # no pool of compile workers: the script stops every process it starts
     inductor_config.compile_threads = 1
     s, t = q.shape[1], k.shape[1]
@@ -3266,18 +3354,27 @@ def flex_ms(q, k, v, window, causal, cap):
     mask = (create_block_mask(keep, None, None, s, t, device=q.device)
             if causal else None)
     compiled = torch.compile(flex_attention, dynamic=False)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
-    def run():
+    def run(qt, kt, vt):
         return compiled(qt, kt, vt, score_mod=soft_cap, block_mask=mask,
                         enable_gqa=True)
-    ms = time_ms(run, 5)
-    diff = float((run().transpose(1, 2).float() - flash_attention(
-        q, k, v, causal=causal, window=window,
-        softcap=cap).float()).abs().max())
     masking = ("no mask" if not causal else "causal block mask"
                if window == 0 else f"causal block mask, window {window}")
-    return ms, diff, f"compiled, tanh score_mod, {masking}, enable_gqa"
+    return (run, tuple(x.transpose(1, 2) for x in (q, k, v)),
+            f"compiled, tanh score_mod, {masking}, enable_gqa")
+
+
+def flex_ms(q, k, v, window, causal, cap):
+    """``flex_attention``'s time on soft-capped attention (:func:`flex_call`).
+    Returns (ms, largest difference from flash_attention's output, how it
+    was called)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    run, ins, how = flex_call(q, k, v, window, causal, cap)
+    ms = time_ms(lambda: run(*ins), 5)
+    diff = float((run(*ins).transpose(1, 2).float() - flash_attention(
+        q, k, v, causal=causal, window=window,
+        softcap=cap).float()).abs().max())
+    return ms, diff, how
 
 
 def lm_kernels(dev):
@@ -4622,27 +4719,34 @@ def serve_model(dev, phase, arch, cfg, seed, prompt, max_seq, note="",
                 all_kept=all_kept, consistency_gated=gated, **probed)
 
 
-def cli_run(phase, args):
-    """``python -m repro_torch.launch.serve *args`` in a subprocess, which
-    must serve 8/8 requests.  Returns its figures, its tok/s as the CLI
-    printed it."""
+def cli_process(phase, module, args):
+    """``python -m repro_torch.launch.<module> *args`` in a subprocess,
+    which must exit 0.  Returns its standard output's lines and the
+    process's wall seconds."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    served = re.compile(r"served (\d+)/(\d+) requests, (\d+) tokens in "
-                        r"([0-9.]+)s \(([0-9.]+) tok/s\), (\d+) ticks")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        [sys.executable, "-m", f"repro_torch.launch.{module}", *args],
         capture_output=True, text=True, env=env,
         timeout=MOE_CLI_TIMEOUT_S, cwd=ROOT)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"{phase}: python -m repro_torch.launch."
-          f"serve {' '.join(args)} exited {proc.returncode}: "
+          f"{module} {' '.join(args)} exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
-    lines = proc.stdout.strip().splitlines()
+    return proc.stdout.strip().splitlines(), wall
+
+
+def cli_run(phase, args):
+    """``python -m repro_torch.launch.serve *args`` in a subprocess, which
+    must serve 8/8 requests.  Returns its figures, its tok/s as the CLI
+    printed it."""
+    served = re.compile(r"served (\d+)/(\d+) requests, (\d+) tokens in "
+                        r"([0-9.]+)s \(([0-9.]+) tok/s\), (\d+) ticks")
+    lines, wall = cli_process(phase, "serve", args)
     m = served.fullmatch(lines[0]) if lines else None
     check(m is not None and m.group(1) == m.group(2) == "8",
           f"{phase}: python -m repro_torch.launch.serve {' '.join(args)} "
-          f"printed {proc.stdout[:500]!r}, not 'served 8/8 requests'")
+          f"printed {lines[:3]!r}, not 'served 8/8 requests'")
     log(f"{phase} python -m repro_torch.launch.serve {' '.join(args)}: "
         f"{lines[0]} (the process {wall:.1f} s)")
     return dict(tokens=int(m.group(3)), serve_s=float(m.group(4)),
@@ -5094,6 +5198,558 @@ def new_archs(dev):
         shapes_14a=shapes, reduced_14b=reduced,
         launches_14c={a: m["launches"] for a, m in models.items()},
         models_14c=models, serving_14d=cli, phase_14_s=secs)}
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def bwd_cases(dev):
+    """flash_attention_bwd inputs on ``dev`` at adversarial shapes, each
+    in f32, f16 and bf16: one query; a key count and a query count that
+    are not multiples of the tiles (64 queries in B2, 32 keys in B3);
+    windows at the tile edges (32, 64, 65); rows that see no key; G = 1,
+    3, 7 and 16; head_dims 64, 80, 128 and 256; the soft-cap on and off;
+    non-causal, with a window too; T != S.  Rows of (label, q, k, v,
+    dout, kwargs)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 97)
+    shapes = [  # b, s, t, hq, hkv, d, causal, window, softcap
+        (1, 1, 1, 4, 2, 64, True, 0, 0.0),
+        (1, 1, 5, 3, 1, 64, False, 0, 0.0),
+        (2, 100, 100, 7, 1, 80, True, 0, 0.0),
+        (1, 130, 130, 3, 1, 128, True, 32, 0.0),
+        (1, 129, 129, 16, 1, 128, True, 64, 0.0),
+        (2, 97, 97, 4, 4, 64, True, 65, 5.0),
+        (1, 90, 20, 2, 1, 128, True, 8, 0.0),
+        (2, 33, 77, 6, 2, 256, False, 0, 0.0),
+        (1, 70, 40, 4, 2, 64, False, 12, 0.0),
+        (1, 64, 16, 4, 2, 64, True, 8, 0.0),
+        (1, 50, 50, 8, 4, 256, True, 0, 30.0),
+        (1, 200, 200, 16, 1, 256, True, 64, 0.0)]
+    out = []
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for b, s, t, hq, hkv, d, causal, window, cap in shapes:
+            q, k, v, do = (torch.randn((b, n, h, d), generator=gen,
+                                       device=dev).to(dtype)
+                           for n, h in ((s, hq), (t, hkv), (t, hkv),
+                                        (s, hq)))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            out.append((f"q [{b}, {s}, {hq}, {d}] k [{b}, {t}, {hkv}, {d}] "
+                        f"{str(dtype)[6:]} {kw}", q, k, v, do, kw))
+    return out
+
+
+def bwd_check(q, k, v, do, kw):
+    """B2 and B3 on the card, given the forward kernel's output as in
+    training, against flash_attention_bwd_plain given blocked_attention's
+    output on the same inputs: each gradient in the input type, finite,
+    within BWD_TOL of its type relative to the plain gradient's largest
+    |value| (absolute below 1); one launch of each counted.  Returns the
+    largest absolute difference of dq and of dk/dv, the largest relative
+    one, and the outputs."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.layers import blocked_attention
+    o = kfa.flash_attention(q, k, v, **kw)
+    n0 = (kfa.flash_attention_bwd_dq.launches,
+          kfa.flash_attention_bwd_dkdv.launches)
+    got = kfa.flash_attention_bwd(q, k, v, o, do, **kw)
+    check((kfa.flash_attention_bwd_dq.launches,
+           kfa.flash_attention_bwd_dkdv.launches) == (n0[0] + 1, n0[1] + 1),
+          f"flash_attention_bwd at q {list(q.shape)}: not one launch of "
+          f"each kernel")
+    del o
+    want = kfa.flash_attention_bwd_plain(
+        q, k, v, blocked_attention(q, k, v, **kw), do, **kw)
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == q.dtype and g.shape == w.shape
+              and bool(torch.isfinite(g).all()),
+              f"flash_attention_bwd {name} at q {list(q.shape)} "
+              f"{q.dtype} {kw}: {g.dtype}{tuple(g.shape)} or not finite")
+        err = float((g.float() - w.float()).abs().max())
+        scale = max(float(w.float().abs().max()), 1.0)
+        check(err <= BWD_TOL[q.dtype] * scale,
+              f"flash_attention_bwd {name} at q {list(q.shape)} k "
+              f"{list(k.shape)} {q.dtype} {kw}: largest difference "
+              f"{err:.3e} from the plain version, above "
+              f"{BWD_TOL[q.dtype]:g} x {scale:.3e}")
+        errs.append(err)
+        rels.append(err / scale)
+    return errs[0], max(errs[1:]), max(rels), got
+
+
+def scan_bwd_cases(dev):
+    """rglru_scan_bwd inputs on ``dev``: one step, odd widths, a time axis
+    that is not a multiple of the kernel's 16-step chunks, decays at 1
+    and above it, then recurrentgemma's training shape [2, 3000, 4096];
+    h from the forward kernel.  Rows of (label, a, h, dh)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 101)
+    out = []
+    for b, s, d in ((1, 1, 1), (3, 17, 5), (2, 100, 513), (1, 257, 64),
+                    (2, 33, 4096), LM_SCAN_SHAPE):
+        a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+        if (b, s, d) != LM_SCAN_SHAPE:
+            a[..., : d // 4] = 1.0
+            a[..., d // 4: d // 3] *= 1.3
+        u, dh = (torch.randn((b, s, d), generator=gen, device=dev)
+                 for _ in range(2))
+        out.append((f"[{b}, {s}, {d}]", a, rglru_scan(a, u), dh))
+    return out
+
+
+def scan_bwd_check(a, h, dh):
+    """rglru_scan_bwd against its plain version on the same card inputs,
+    bitwise; one launch counted.  Returns the largest |got - want|."""
+    from repro_torch.kernels import rglru_scan as krs
+    n0 = krs.rglru_scan_bwd.launches
+    got = krs.rglru_scan_bwd(a, h, dh)
+    want = krs.rglru_scan_bwd_plain(a, h, dh)
+    torch.cuda.synchronize()
+    check(krs.rglru_scan_bwd.launches == n0 + 1,
+          f"rglru_scan_bwd at {list(a.shape)}: not one launch")
+    err = 0.0
+    for name, g, w in zip(("da", "du"), got, want):
+        diff = float((g - w).abs().max())
+        check(torch.equal(g, w), f"rglru_scan_bwd {name} at "
+              f"{list(a.shape)}: not bitwise equal to the plain version "
+              f"(largest difference {diff:.3e})")
+        err = max(err, diff)
+    return err
+
+
+def library_bwd_ms(run, ins, dout):
+    """The time of the backward of one PyTorch attention call ``run`` on
+    head-first ``ins``, given the output's gradient ``dout`` [B, S, Hq, D]:
+    ``torch.autograd.grad`` of one forward, the graph kept.  Returns (ms,
+    its dq [B, S, Hq, D])."""
+    leaves = [x.detach().requires_grad_(True) for x in ins]
+    out = run(*leaves)
+    g = dout.transpose(1, 2)
+
+    def grad():
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+    ms = time_ms(grad, 5)
+    return ms, grad()[0].transpose(1, 2)
+
+
+def attention_bwd_at(dev, phase, shapes, seed):
+    """``phase``'s flash_attention_bwd (15a) at the training and the
+    arches' attention shapes in bf16, rows of attention_at's layout
+    (label, B, S, T, Hq, Hkv, head_dim, causal, window, softcap): B2 and
+    B3 against the plain backward (:func:`bwd_check`), each kernel timed
+    alone and both together beside their bounds, the plain backward, and
+    the backward of the PyTorch call that computes the same function
+    (scaled_dot_product_attention, or at the soft-capped shapes
+    flex_attention compiled).  Bounds: the operations each kernel's
+    outputs need, at the bf16 tensor rate, 2 * D FLOPs a kept (query
+    head, key) pair for each of S, dO V^T and its own products (B2: S,
+    dP, dQ = 6 * D; B3: S, dP, dV, dK = 8 * D; the backward as one
+    function: 10 * D), against the bytes each reads once and writes once.
+    Returns a record a shape."""
+    from repro_torch.kernels import flash_attention as kfa
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = []
+    for label, b, s, t, hq, hkv, d, causal, window, cap in shapes:
+        q, k, v, do = (torch.randn((b, n, h, d), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for n, h in ((s, hq), (t, hkv), (t, hkv), (s, hq)))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        fwd_err, fwd_rel = flash_check(q, k, v, kw)
+        check(fwd_rel <= FLASH_MAIN_REL_L2, f"{phase} {label}: "
+              f"flash_attention's relative L2 difference {fwd_rel:.3e} "
+              f"from blocked_attention, above {FLASH_MAIN_REL_L2:g}")
+        dq_err, dkv_err, rel, got = bwd_check(q, k, v, do, kw)
+        o = kfa.flash_attention(q, k, v, **kw)
+        _, lse, delta = kfa.flash_attention_bwd_dq(q, k, v, o, do, **kw)
+        dq_ms = time_ms(lambda: kfa.flash_attention_bwd_dq(q, k, v, o, do,
+                                                           **kw), 5)
+        dkdv_ms = time_ms(lambda: kfa.flash_attention_bwd_dkdv(
+            q, k, v, do, lse, delta, **kw), 5)
+        both_ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do,
+                                                          **kw), 5)
+        plain_ms = time_ms(lambda: kfa.flash_attention_bwd_plain(
+            q, k, v, o, do, **kw), 1)
+        if cap == 0.0:
+            run, ins, how = sdpa_call(q, k, v, window, causal)
+            call = f"backward of scaled_dot_product_attention, {how}"
+        else:
+            run, ins, how = flex_call(q, k, v, window, causal, cap)
+            call = f"backward of flex_attention, {how}"
+        lib_ms, lib_dq = library_bwd_ms(run, ins, do)
+        lib_diff = float((lib_dq.float() - got[0].float()).abs().max())
+        pairs = attention_pairs(s, t, window, causal) * b * hq
+        esz = q.element_size()
+        qbytes, kbytes = q.numel() * esz, k.numel() * esz
+        stats = 2 * b * hq * s * 4
+        bounds = {}
+        for name, per_pair, nbytes in (
+                ("dq", 6, 4 * qbytes + 2 * kbytes + stats),
+                ("dkdv", 8, 2 * qbytes + 4 * kbytes + stats),
+                ("both", 10, 4 * qbytes + 4 * kbytes)):
+            ops_ms = per_pair * d * pairs / BF16_OPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bounds[name] = (max(ops_ms, bytes_ms),
+                            "operations" if ops_ms >= bytes_ms else "bytes")
+        log(f"{phase} {label}: flash_attention_bwd at q {list(q.shape)} k/v "
+            f"{list(k.shape)} bf16, causal {causal}, window {window}, "
+            f"softcap {cap:g}: B2 {dq_ms:.3f} ms ({bounds['dq'][0] / dq_ms:.2%}"
+            f" of its bound {bounds['dq'][0]:.4f} ms), B3 {dkdv_ms:.3f} ms "
+            f"({bounds['dkdv'][0] / dkdv_ms:.2%} of {bounds['dkdv'][0]:.4f} "
+            f"ms), both {both_ms:.3f} ms ({bounds['both'][0] / both_ms:.2%} "
+            f"of the backward's bound {bounds['both'][0]:.4f} ms, "
+            f"{pairs:,} kept pairs); {call}: {lib_ms:.3f} ms, "
+            f"{both_ms / lib_ms:.1f}x faster than B2 + B3 (its dq's largest "
+            f"difference from B2's {lib_diff:.3e}); plain {plain_ms:.3f} ms; "
+            f"largest differences from the plain backward: dq {dq_err:.3e}, "
+            f"dk/dv {dkv_err:.3e}, relative to the largest |gradient| "
+            f"{rel:.3e}; the forward kernel against blocked_attention: "
+            f"largest {fwd_err:.3e}, relative L2 {fwd_rel:.3e}")
+        out.append(dict(label=label, shape=[list(q.shape), list(k.shape)],
+                        causal=causal, window=window, softcap=cap,
+                        dq_ms=dq_ms, dkdv_ms=dkdv_ms, ms=both_ms,
+                        plain_ms=plain_ms, bound_ms={n: b_[0] for n, b_ in
+                                                     bounds.items()},
+                        bound_by={n: b_[1] for n, b_ in bounds.items()},
+                        library_ms=lib_ms, library_call=call,
+                        library_dq_max_abs_diff=lib_diff,
+                        fwd_max_abs_err=fwd_err, fwd_rel_l2=fwd_rel,
+                        max_abs_err_dq=dq_err, max_abs_err_dkdv=dkv_err,
+                        max_rel_err=rel, pairs=pairs))
+        del q, k, v, do, o, got, lse, delta, run, ins
+        torch.cuda.empty_cache()
+    return out
+
+
+def reset_train_launches():
+    """Every count of the training path's kernels set to 0."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krs
+    kfa.reset_launches()
+    krs.rglru_scan.launches = 0
+    krs.rglru_scan_bwd.launches = 0
+
+
+def train_launches():
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krs
+    return dict(flash_attention=kfa.flash_attention.launches,
+                flash_attention_tensor_cores=kfa.flash_attention
+                .launches_by_route[kfa.TENSOR_CORES],
+                flash_attention_bwd_dq=kfa.flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dkdv=kfa.flash_attention_bwd_dkdv
+                .launches,
+                rglru_scan=krs.rglru_scan.launches,
+                rglru_scan_bwd=krs.rglru_scan_bwd.launches)
+
+
+def train_reduced(dev):
+    """15b: one train step's loss and gradients at REDUCED in f32 on the
+    card (the kernels, their backward kernels among them) and on the CPU
+    (the plain versions), weights drawn on the CPU: the loss within
+    TRAIN_LOSS_REL, each gradient leaf within a relative L2 of
+    TRAIN_GRAD_REL_L2."""
+    from repro_torch.common.tree import flatten_with_paths, tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.models import api
+    from repro_torch.train.step import TrainConfig, value_and_grad
+    out = {}
+    for arch in (TRAIN_ARCH, LM_ARCH):
+        cfg = get_config(arch, reduced=True).replace(param_dtype="float32")
+        params = api.init_params(SEED + 103, cfg, "cpu")
+        batch = SyntheticTokens(cfg, ShapeCell("b", 40, 2, "train"),
+                                seed=SEED + 107).batch_at(0)
+        runs = {}
+        reset_train_launches()
+        for where in ("cpu", dev):
+            runs[str(where)] = value_and_grad(
+                cfg, TrainConfig(), tree_map(lambda x: x.to(where), params),
+                {k: torch.as_tensor(v).to(where) for k, v in batch.items()})
+        launches = train_launches()
+        (lc, _, gc), (lg, _, gg) = runs["cpu"], runs[str(dev)]
+        rel_loss = abs(float(lg) - float(lc)) / abs(float(lc))
+        check(rel_loss <= TRAIN_LOSS_REL, f"15b {arch}: loss {float(lg)} on "
+              f"the card, {float(lc)} on the CPU")
+        worst, worst_path = 0.0, ""
+        for (path, a), (_, b) in zip(flatten_with_paths(gg),
+                                     flatten_with_paths(gc)):
+            a, b = a.cpu().double(), b.double()
+            den = float(b.norm())
+            r = float((a - b).norm()) / den if den > 0 else float(a.norm())
+            if r > worst:
+                worst, worst_path = r, path
+        check(worst <= TRAIN_GRAD_REL_L2, f"15b {arch}: gradient "
+              f"{worst_path} differs by a relative L2 of {worst:.3e} from "
+              f"the CPU's, above {TRAIN_GRAD_REL_L2:g}")
+        check(launches["flash_attention_bwd_dq"] > 0 and (
+            launches["rglru_scan_bwd"] > 0 or arch != LM_ARCH),
+            f"15b {arch}: the card's backward launched {launches}")
+        log(f"15b {arch} REDUCED f32, one train step's value_and_grad on "
+            f"the card and the CPU: loss {float(lg):.6f} / {float(lc):.6f} "
+            f"(relative {rel_loss:.2e}), largest per-leaf relative L2 "
+            f"{worst:.3e} ({worst_path}); the card's launches {launches}")
+        out[arch] = dict(loss_rel=rel_loss, grad_rel_l2=worst,
+                         launches=launches)
+    return out
+
+
+def train_gates(phase, res, steps):
+    """Finite loss and gradient norm at every step, the last loss below
+    the first; returns the median step ms."""
+    losses, norms = res["losses"], res["grad_norms"]
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and all(map(math.isfinite, norms)),
+          f"{phase}: losses {losses}, gradient norms {norms}")
+    check(losses[-1] < losses[0], f"{phase}: the last step's loss "
+          f"{losses[-1]} is not below the first's {losses[0]}")
+    return float(np.median(res["step_s"])) * 1e3
+
+
+def train_energy(res):
+    e = res["energy"]
+    return dict(naive_j_per_step=e["total_naive_j"] / e["steps"],
+                corrected_j_per_step=e["total_corrected_j"] / e["steps"],
+                naive_vs_corrected=e["naive_vs_corrected"])
+
+
+def train_cli(dev):
+    """15c: ``python -m repro_torch.launch.train`` at olmo-1b's full width,
+    called in this process through its ``main`` (so that the launches and
+    the card's peak memory are read here), then the reduced default in a
+    subprocess on the card.  Gates: train_gates; per step 32 forward
+    launches on the tensor cores (16 layers, each recomputed once) and 16
+    of each backward kernel, no recurrence."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_main
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_train_launches()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        res = train_main.main(TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    launches = train_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines = text.getvalue().strip().splitlines()
+    check([ln.split(":")[0] for ln in lines] == ["final_loss", "stragglers",
+                                                 "energy"],
+          f"15c: the CLI printed {lines}")
+    n = TRAIN_STEPS
+    want = dict(flash_attention=32 * n, flash_attention_tensor_cores=32 * n,
+                flash_attention_bwd_dq=16 * n, flash_attention_bwd_dkdv=16 * n,
+                rglru_scan=0, rglru_scan_bwd=0)
+    check(launches == want, f"15c: launches {launches}, expected {want}")
+    step_ms = train_gates("15c", res, n)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    energy = train_energy(res)
+    log(f"15c python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)} (in "
+        f"process): {' | '.join(lines)}; losses "
+        f"{[round(x, 4) for x in res['losses']]}, gradient norms "
+        f"{[round(x, 3) for x in res['grad_norms']]}; step ms "
+        f"{[round(x * 1e3, 1) for x in res['step_s']]}, median "
+        f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:,.0f} tokens/s; peak "
+        f"card memory {peak / 1e9:.2f} GB; launches {launches}; the "
+        f"ledger's J/step (simulated ChipPowerModel, not the card's draw): "
+        f"naive {energy['naive_j_per_step']:.2f}, corrected "
+        f"{energy['corrected_j_per_step']:.2f}; {wall:.1f} s in all")
+    del res
+    torch.cuda.empty_cache()
+    lines, cli_s = cli_process("15c", "train", TRAIN_CLI_REDUCED)
+    check([ln.split(":")[0] for ln in lines] == ["final_loss", "stragglers",
+                                                 "energy"]
+          and math.isfinite(float(lines[0].split()[1])),
+          f"15c: python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_CLI_REDUCED)} printed {lines}")
+    log(f"15c python -m repro_torch.launch.train "
+        f"{' '.join(TRAIN_CLI_REDUCED)}: {lines[0]} (the process "
+        f"{cli_s:.1f} s)")
+    return dict(launches=launches, step_ms=step_ms,
+                tokens_per_s=tokens / step_ms * 1e3, peak_bytes=peak,
+                wall_s=wall, energy=energy, cli_reduced_s=cli_s)
+
+
+def train_recurrent(dev):
+    """15d: recurrentgemma-9b at full width, 3 of its 38 layers (one
+    period: rglru, rglru, attn), through run_training: RG_STEPS steps of
+    RG_BATCH x RG_SEQ tokens.  Gates: train_gates; per step 4 forward
+    launches of rglru_scan and 2 of flash_attention (each layer
+    recomputed once), 2 of rglru_scan_bwd and 1 of each attention
+    backward kernel."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.train.step import TrainConfig
+    cfg = get_config(LM_ARCH).replace(n_layers=RG_LAYERS)
+    n = RG_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_train_launches()
+    t0 = time.perf_counter()
+    res = run_training(cfg, ShapeCell("rg", RG_SEQ, RG_BATCH, "train"),
+                       TrainConfig(optim=AdamWConfig(
+                           lr_peak=TRAIN_LR, warmup_steps=1, total_steps=n)),
+                       LoopConfig(total_steps=n, sensor_profile=TRAIN_SENSOR),
+                       seed=SEED + 109, device=dev)
+    wall = time.perf_counter() - t0
+    launches = train_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = dict(flash_attention=2 * n, flash_attention_tensor_cores=2 * n,
+                flash_attention_bwd_dq=n, flash_attention_bwd_dkdv=n,
+                rglru_scan=4 * n, rglru_scan_bwd=2 * n)
+    check(launches == want, f"15d: launches {launches}, expected {want}")
+    step_ms = train_gates("15d", res, n)
+    energy = train_energy(res)
+    tokens = RG_BATCH * RG_SEQ
+    log(f"15d recurrentgemma-9b at full width, {RG_LAYERS} of 38 layers "
+        f"({tf.param_count(cfg) / 1e9:.3f} B parameters, bf16), "
+        f"{RG_BATCH} x {RG_SEQ} tokens, {n} steps through run_training: "
+        f"losses {[round(x, 4) for x in res['losses']]}, gradient norms "
+        f"{[round(x, 3) for x in res['grad_norms']]}; step ms "
+        f"{[round(x * 1e3, 1) for x in res['step_s']]}, median "
+        f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:,.0f} tokens/s; peak "
+        f"card memory {peak / 1e9:.2f} GB; launches {launches}; the "
+        f"ledger's J/step (simulated): naive "
+        f"{energy['naive_j_per_step']:.2f}, corrected "
+        f"{energy['corrected_j_per_step']:.2f}; {wall:.1f} s in all")
+    del res
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms,
+                tokens_per_s=tokens / step_ms * 1e3, peak_bytes=peak,
+                wall_s=wall, energy=energy,
+                params=tf.param_count(cfg))
+
+
+def train_restart(dev):
+    """15e: olmo-1b at REDUCED in f32 on the card, 20 steps straight
+    against 10, a checkpoint, a restart and 10 more (checkpoints in
+    build/chip_train_ckpt, cleared before and after): the final losses
+    within RESTART_REL, the reference's bar."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.train.step import TrainConfig
+    cfg = get_config(TRAIN_ARCH, reduced=True).replace(param_dtype="float32")
+    shape = ShapeCell("tiny", 32, 4, "train")
+    tcfg = TrainConfig(optim=AdamWConfig(lr_peak=3e-3, warmup_steps=5,
+                                         total_steps=60))
+    lc = LoopConfig(total_steps=20, ckpt_every=10, log_every=100)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    try:
+        straight = run_training(cfg, shape, tcfg, lc, seed=5, device=dev)
+        run_training(cfg, shape, tcfg, dataclasses.replace(
+            lc, total_steps=10), ckpt_dir=TRAIN_CKPT_DIR, seed=5, device=dev)
+        resumed = run_training(cfg, shape, tcfg, lc, ckpt_dir=TRAIN_CKPT_DIR,
+                               seed=5, device=dev)
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    a, b = straight["final_loss"], resumed["final_loss"]
+    rel = abs(a - b) / abs(a)
+    check(len(resumed["losses"]) == 10 and rel <= RESTART_REL,
+          f"15e: 20 straight end at loss {a}, 10 + restart + 10 at {b}")
+    log(f"15e restart on the card (olmo-1b REDUCED f32): 20 steps straight "
+        f"end at loss {a:.8f}, 10 + checkpoint + restart + 10 at {b:.8f} "
+        f"(relative {rel:.2e}, {'bitwise' if a == b else 'not bitwise'})")
+    return dict(straight=a, resumed=b, rel=rel)
+
+
+def training(dev):
+    """Phase 15; returns the three backward kernels' records and what it
+    adds to the forward kernels' records."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krs
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # 15a: the backward kernels against their plain versions
+    scans = scan_bwd_cases(dev)
+    scan_err = max(scan_bwd_check(a, h, dh) for _, a, h, dh in scans)
+    log("15a rglru_scan_bwd vs plain, bitwise equal at "
+        + "; ".join(label for label, *_ in scans)
+        + f" (largest difference {scan_err:.3e})")
+    _, a, h, dh = scans[-1]
+    scan_ms = time_ms(lambda: krs.rglru_scan_bwd(a, h, dh), 20)
+    scan_plain_ms = time_ms(lambda: krs.rglru_scan_bwd_plain(a, h, dh), 1)
+    scan_bytes = 5 * a.numel() * 4
+    scan_bound = scan_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"15a rglru_scan_bwd at {list(a.shape)} f32: kernel {scan_ms:.4f} "
+        f"ms, {scan_bound / scan_ms:.1%} of the bound {scan_bound:.4f} ms "
+        f"(bytes: {scan_bytes:,}); plain {scan_plain_ms:.3f} ms")
+    del scans, a, h, dh
+    errs = {}
+    for label, q, k, v, do, kw in bwd_cases(dev):
+        dq_err, dkv_err, rel, _ = bwd_check(q, k, v, do, kw)
+        e = errs.setdefault(q.dtype, [0.0, 0.0, 0.0])
+        errs[q.dtype] = [max(e[0], dq_err), max(e[1], dkv_err),
+                         max(e[2], rel)]
+    log("15a flash_attention_bwd (B2, B3) vs plain at 12 adversarial "
+        "shapes in each type, within BWD_TOL (" + ", ".join(
+            f"{str(t)[6:]} {x:g}" for t, x in BWD_TOL.items())
+        + " of the largest |gradient|); largest differences dq / dk,dv / "
+        "relative: " + "; ".join(f"{str(t)[6:]} {e[0]:.3e} / {e[1]:.3e} / "
+                                 f"{e[2]:.3e}" for t, e in errs.items()))
+    shapes = attention_bwd_at(dev, "15a", TRAIN_ATTN_SHAPES, SEED + 113)
+    torch.cuda.empty_cache()
+    reduced = train_reduced(dev)
+    cli = train_cli(dev)
+    rg = train_recurrent(dev)
+    restart = train_restart(dev)
+    secs = time.perf_counter() - t_phase
+    log(f"15: phase 15 took {secs:.1f} s")
+    main = shapes[0]
+    src = "src/repro_torch/kernels/csrc/"
+    adv_dq = max(e[0] for e in errs.values())
+    adv_dkv = max(e[1] for e in errs.values())
+    common = dict(route="cuda", source=src + _build.SOURCES[
+        "flash_attention_bwd"], replaces=REPLACES["flash_attention"],
+        replaces_note="the backward of the TPU kernel, which had none: the "
+        "reference differentiates its jnp oracle blocked_attention, "
+        "src/repro/models/layers.py:149", plain_ms=main["plain_ms"],
+        plain_covers="dq, dk and dv together",
+        library_ms=main["library_ms"], library_call=main["library_call"],
+        library_covers="dq, dk and dv together: compare with B2 + B3",
+        shape=main["shape"], both_ms=main["ms"],
+        both_bound_ms=main["bound_ms"]["both"], shapes_15a=shapes,
+        launches_15d=rg["launches"], training_15c=cli, training_15d=rg,
+        reduced_15b=reduced, restart_15e=restart, phase_15_s=secs)
+    records = [
+        dict(name="rglru_scan_bwd", route="cuda",
+             source=src + _build.SOURCES["rglru_scan_bwd"],
+             replaces=REPLACES["rglru_scan"],
+             replaces_note="the backward of the TPU kernel, which had none: "
+             "the reference differentiates its jnp oracle rglru_scan_ref, "
+             "src/repro/models/recurrent.py:66",
+             launches=rg["launches"]["rglru_scan_bwd"], max_abs_err=scan_err,
+             ms=scan_ms, plain_ms=scan_plain_ms, bound_ms=scan_bound,
+             bound_by="bytes", library_ms=None, shape=list(LM_SCAN_SHAPE),
+             bytes=scan_bytes, launches_from="15d"),
+        dict(name="flash_attention_bwd_dq", launches=cli["launches"][
+            "flash_attention_bwd_dq"], max_abs_err=max(
+                adv_dq, max(r["max_abs_err_dq"] for r in shapes)),
+             ms=main["dq_ms"], bound_ms=main["bound_ms"]["dq"],
+             bound_by=main["bound_by"]["dq"], launches_from="15c", **common),
+        dict(name="flash_attention_bwd_dkdv", launches=cli["launches"][
+            "flash_attention_bwd_dkdv"], max_abs_err=max(
+                adv_dkv, max(r["max_abs_err_dkdv"] for r in shapes)),
+             ms=main["dkdv_ms"], bound_ms=main["bound_ms"]["dkdv"],
+             bound_by=main["bound_by"]["dkdv"], launches_from="15c",
+             **common)]
+    extras = {"flash_attention": dict(launches_15c=cli["launches"][
+        "flash_attention"], launches_15d=rg["launches"]["flash_attention"]),
+        "rglru_scan": dict(launches_15d=rg["launches"]["rglru_scan"])}
+    return records, extras
 
 
 if __name__ == "__main__":

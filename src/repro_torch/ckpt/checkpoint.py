@@ -1,8 +1,8 @@
 """Checkpoint storage: one directory a step, a manifest and one ``.npy`` a
 leaf, written atomically, old steps garbage-collected.
 
-The port's own copy of the part of :mod:`repro.ckpt.checkpoint` that
-monitor checkpoints use, writing the same layout::
+The port's own copy of :mod:`repro.ckpt.checkpoint`, which monitor
+checkpoints and the training loop use, writing the same layout::
 
     <root>/step_<N>/
       manifest.json          — {"step", "extras", "trees": {tree: {path:
@@ -10,7 +10,10 @@ monitor checkpoints use, writing the same layout::
       <tree>__<path>.npy     — one file a leaf
 
 Leaves are numpy arrays already on the host (the caller copies them off
-the card); nothing here touches a device.  Writes go to
+the card, :func:`snapshot` for a tree of tensors); a bf16 leaf is stored
+as f32 under its logical type ``bfloat16``, as the reference stores it.
+:meth:`CheckpointManager.restore` reads a step back into a tree of
+tensors, on the tree's device and in its types.  Writes go to
 ``step_<N>.tmp`` and are renamed on completion, so a reader never sees a
 partial step; after each save only the newest ``retain`` steps are kept.
 ``save_async`` writes on one background thread at a time: a second save
@@ -22,13 +25,39 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.common.tree import flatten_with_paths, map_with_paths
 
 
 def _leaf_fname(path: str) -> str:
     return path.replace("/", "_") + ".npy"
+
+
+class Stored(NamedTuple):
+    """A leaf kept in another numpy type than its own: bf16 values, which
+    numpy cannot hold, as f32 (exactly) under the logical type
+    ``"bfloat16"``."""
+    array: np.ndarray
+    dtype: str
+
+
+def snapshot(tree: Any) -> Dict[str, Any]:
+    """``{dotted path: numpy copy}`` of a tree of tensors (the reference's
+    paths, :func:`repro_torch.common.tree.flatten_with_paths`), copied to
+    the host now, so a background save may write it while the tensors
+    change; bf16 leaves as :class:`Stored` f32."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flatten_with_paths(tree):
+        t = torch.as_tensor(leaf).detach()
+        if t.dtype == torch.bfloat16:
+            out[path] = Stored(t.float().cpu().numpy(), "bfloat16")
+        else:
+            out[path] = t.cpu().numpy().copy()
+    return out
 
 
 def steps_in(root: str) -> List[int]:
@@ -60,6 +89,10 @@ class CheckpointManager:
     def steps(self) -> List[int]:
         return steps_in(self.root)
 
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
     # -- save ---------------------------------------------------------------
     def _write(self, step: int, trees: Mapping[str, Mapping[str, Any]],
                extras: Dict[str, Any]) -> None:
@@ -72,11 +105,16 @@ class CheckpointManager:
             entries = {}
             # sorted paths: the reference's flattening order
             for path in sorted(leaves):
-                arr = np.asarray(leaves[path])
+                leaf = leaves[path]
+                if isinstance(leaf, Stored):
+                    arr, logical = leaf.array, leaf.dtype
+                else:
+                    arr = np.asarray(leaf)
+                    logical = str(arr.dtype)
                 fname = f"{tree_name}__{_leaf_fname(path)}"
                 np.save(os.path.join(tmp, fname), arr)
                 entries[path] = {"file": fname, "shape": list(arr.shape),
-                                 "dtype": str(arr.dtype)}
+                                 "dtype": logical}
             manifest["trees"][tree_name] = entries
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -123,3 +161,35 @@ class CheckpointManager:
         if self._error is not None:
             exc, self._error = self._error, None
             raise exc
+
+    # -- restore -------------------------------------------------------------
+    def restore(self, step: int, tree_specs: Mapping[str, Any],
+                device: Optional[torch.device] = None
+                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Rebuild each tree of ``tree_specs`` (``{tree: tree of specs}``)
+        from step ``step``: returns (``{tree: tree of tensors}``, the
+        step's extras).  A spec leaf is a tensor (its shape, type and
+        device) or has ``shape`` and ``dtype`` (a
+        :class:`~repro_torch.models.transformer.TensorSpec`; placed on
+        ``device``, default the CPU).  Leaves are matched by the
+        reference's dotted paths; a stored shape other than the spec's
+        raises ``ValueError``."""
+        d = os.path.join(self.root, f"step_{step}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        out: Dict[str, Any] = {}
+        for name, spec_tree in tree_specs.items():
+            entries = manifest["trees"][name]
+
+            def leaf(path, spec):
+                path = ".".join(map(str, path))
+                arr = np.load(os.path.join(d, entries[path]["file"]))
+                if tuple(arr.shape) != tuple(spec.shape):
+                    raise ValueError(f"{name}.{path}: ckpt shape "
+                                     f"{arr.shape} != spec "
+                                     f"{tuple(spec.shape)}")
+                where = (spec.device if isinstance(spec, torch.Tensor)
+                         else device or torch.device("cpu"))
+                return torch.from_numpy(np.array(arr)).to(where, spec.dtype)
+            out[name] = map_with_paths(leaf, spec_tree)
+        return out, manifest["extras"]

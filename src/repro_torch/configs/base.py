@@ -1,6 +1,7 @@
 """ArchConfig — the model-config schema (a copy of
 :mod:`repro.configs.base`'s, every field kept so that a reference config's
-``to_dict`` round-trips)."""
+``to_dict`` round-trips) — and the assigned input-shape cells,
+:class:`ShapeCell`, :data:`SHAPES` and :func:`get_shape`."""
 from __future__ import annotations
 
 import dataclasses
@@ -88,3 +89,27 @@ class ArchConfig(Config):
             assert self.n_experts > 0 and self.top_k > 0
         if self.encdec:
             assert self.n_enc_layers > 0 and self.n_dec_layers > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell(Config):
+    """One assigned input-shape cell."""
+    name: str = ""
+    seq_len: int = 0
+    global_batch: int = 0
+    mode: str = "train"      # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeCell:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

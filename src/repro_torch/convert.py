@@ -2,7 +2,8 @@
 
 What a monitor or audit run carries are a sensor fleet's hidden
 parameters, the §5 correction parameters and a monitor's online state;
-the language model's weights go across with :func:`lm_params`.  The
+the language model's weights go across with :func:`lm_params`, an
+AdamW state with :func:`adamw_state`.  The
 functions here take them as numpy arrays — as the reference
 package (:mod:`repro`) holds them — and build the port's tensors on a
 device, or turn the port's back into numpy so that the two packages can
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common.tree import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fleet_engine import SensorBank, StreamingMoments
 from repro_torch.core.ground_truth import ActivityTimeline
@@ -33,6 +35,7 @@ from repro_torch.core.stream.estimators import StreamCorrections
 from repro_torch.core.stream.monitor import MonitorService
 from repro_torch.core.stream.state import DeviceState
 from repro_torch.models import api, transformer
+from repro_torch.optim.adamw import AdamWState
 
 _RING_SLOT_FIELDS = tuple(schema.RING_SLOT_FIELDS)
 _MOMENT_FIELDS = tuple(schema.MOMENT_FIELDS)
@@ -212,3 +215,13 @@ def lm_params(ref_params: Mapping, cfg: ArchConfig,
                              f"{spec.shape}")
         return t.to(dev)
     return transformer.map_tree(leaf, specs)
+
+
+def adamw_state(ref_state, device: DeviceLike = "cuda") -> AdamWState:
+    """The port's :class:`~repro_torch.optim.adamw.AdamWState` from a
+    reference ``AdamWState`` (its ``count``, ``mu`` and ``nu``, leaves as
+    numpy arrays or anything ``np.asarray`` takes): the same trees of
+    f32 moments and the int32 step count, on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: _from_numpy(x).to(dev), AdamWState(
+        count=ref_state.count, mu=ref_state.mu, nu=ref_state.nu))

@@ -30,8 +30,10 @@ SOURCES = {
     "step_integrate": "step_integrate.cu",
     "fma_chain": "fma_chain.cu",
     "rglru_scan": "rglru_scan.cu",
+    "rglru_scan_bwd": "rglru_scan_bwd.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_tc": "flash_attention_tc.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 # -fmad=false keeps every product separately rounded, as the plain

@@ -27,10 +27,24 @@ Its plain version is :func:`repro_torch.models.layers.blocked_attention`,
 as the reference's ``kernels/ref.py`` makes ``blocked_attention`` the
 Pallas kernel's oracle.  The model's attention blocks call
 :func:`flash_attention` where the reference calls ``blocked_attention``.
+
+Gradients flow through a :class:`torch.autograd.Function` whenever grad
+mode is on and q, k or v requires grad: its forward is the same route
+and launch, and it saves q, k, v and the output; its backward is
+:func:`flash_attention_bwd`, two CUDA kernels in
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dq`, which
+also writes the rows' log-sum-exp and rowsum(dO ∘ O), then
+:func:`flash_attention_bwd_dkdv`), or their plain version
+:func:`flash_attention_bwd_plain` on CPU tensors.  The TPU kernel had no
+backward (the reference trains through ``jax.grad`` of
+``blocked_attention``), so these replace no TPU kernel.  With grad off,
+:func:`flash_attention` is the forward alone, its launches and routes as
+they were.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -46,6 +60,8 @@ CUDA_CORES = "cuda_cores"
 KERNELS = {TENSOR_CORES: "flash_attention_tc", CUDA_CORES: "flash_attention"}
 #: TMA's global address and strides are multiples of 16 bytes
 _TMA_ALIGN = 16
+#: query positions a step of the plain backward holds against every key
+PLAIN_BWD_BLOCK_Q = 512
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -68,7 +84,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     """q [B,S,Hq,D]; k/v [B,T,Hkv,D]; Hq = G·Hkv.  Returns [B,S,Hq,D] in
     q's type: :func:`blocked_attention` on CPU tensors, the kernel of
-    :func:`route` on CUDA tensors."""
+    :func:`route` on CUDA tensors.  Under grad mode, with q, k or v
+    requiring grad, through :class:`_FlashAttention`, whose backward is
+    :func:`flash_attention_bwd`."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """The forward of :func:`flash_attention`, counted in its
+    ``launches``."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return blocked_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
@@ -122,10 +149,167 @@ def _launch_route(path: str, q: torch.Tensor, k: torch.Tensor,
                    ctypes.c_float(D ** -0.5))
 
 
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out = _forward(q, k, v, causal=causal, window=window,
+                       softcap=softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0
+                              ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of :func:`flash_attention` at q [B,S,Hq,D], k/v
+    [B,T,Hkv,D], its output ``out`` and the output's gradient ``dout``:
+    the formulas of ``csrc/flash_attention_bwd.cu`` in f32 torch ops, a
+    block of ``PLAIN_BWD_BLOCK_Q`` query positions at a time against every
+    key:
+    P = exp(s − lse) over the kept keys, dS = P ∘ (dO Vᵀ − rowsum(dO ∘
+    O)) (× 1 − (s/cap)² where soft-capped), dQ = scale · dS K, dK =
+    scale · dSᵀ Q, dV = Pᵀ dO.  A row with no kept key gets zero
+    gradients.  Returned in the inputs' types."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros((B, S, Hq, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, T, Hkv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    k_pos = torch.arange(T, device=dev)
+    for i0 in range(0, S, PLAIN_BWD_BLOCK_Q):
+        i1 = min(S, i0 + PLAIN_BWD_BLOCK_Q)
+        n = i1 - i0
+        qb, ob, gb = (x[:, i0:i1].float().reshape(B, n, Hkv, G, D)
+                      for x in (q, out, dout))
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qb, kf) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        q_pos = torch.arange(i0, i1, device=dev)[:, None]
+        keep = torch.ones((n, T), dtype=torch.bool, device=dev)
+        if causal:
+            keep &= k_pos[None, :] <= q_pos
+        if window > 0:
+            keep &= k_pos[None, :] > q_pos - window
+        keep5 = keep[None, :, None, None, :]
+        lse = torch.logsumexp(torch.where(keep5, s, -torch.inf), dim=-1)
+        lse = torch.where(torch.isfinite(lse), lse, 0.0)
+        p = torch.where(keep5, torch.exp(s - lse[..., None]), 0.0)
+        delta = (gb * ob).sum(-1)
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", gb, vf)
+        ds = p * (dp - delta[..., None])
+        if softcap > 0.0:
+            ds = ds * (1.0 - torch.square(s / softcap))
+        dq[:, i0:i1] = (torch.einsum("bqhgk,bkhd->bqhgd", ds, kf)
+                        * scale).reshape(B, n, Hq, D)
+        dk += torch.einsum("bqhgk,bqhgd->bkhd", ds, qb) * scale
+        dv += torch.einsum("bqhgk,bqhgd->bkhd", p, gb)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_args(q, k, v, *, causal, window, softcap) -> tuple:
+    """The two backward kernels' scalar arguments, in order."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    return (ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(T),
+            ctypes.c_int(Hq), ctypes.c_int(Hkv), ctypes.c_int(D),
+            ctypes.c_int(DTYPE_CODES[q.dtype]),
+            ctypes.c_int(int(bool(causal))), ctypes.c_int(int(window)),
+            ctypes.c_float(float(softcap)), ctypes.c_float(D ** -0.5))
+
+
+def flash_attention_bwd_dq(q, k, v, out, dout, *, causal, window, softcap
+                           ) -> Tuple[torch.Tensor, ...]:
+    """Kernel B2 on checked contiguous CUDA tensors: returns (dq in q's
+    type, lse [B,Hq,S] f32, rowsum(dO ∘ O) [B,Hq,S] f32); one launch,
+    counted in ``flash_attention_bwd_dq.launches``."""
+    B, S, Hq, _ = q.shape
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    dq = torch.empty_like(q)
+    ptrs = [q, k, v, out, dout, lse, delta, dq, None, None]
+    rest = _bwd_args(q, k, v, causal=causal, window=window, softcap=softcap)
+    _launch.launch("flash_attention_bwd", q.device, ptrs, *rest,
+                   entry="flash_attention_bwd_dq_launch")
+    flash_attention_bwd_dq.launches += 1
+    return dq, lse, delta
+
+
+def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window,
+                             softcap) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B3 on checked contiguous CUDA tensors and B2's lse and
+    delta: returns (dk, dv) in k's type; one launch, counted in
+    ``flash_attention_bwd_dkdv.launches``."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    ptrs = [q, k, v, None, dout, lse, delta, None, dk, dv]
+    rest = _bwd_args(q, k, v, causal=causal, window=window, softcap=softcap)
+    _launch.launch("flash_attention_bwd", q.device, ptrs, *rest,
+                   entry="flash_attention_bwd_dkdv_launch")
+    flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of :func:`flash_attention`:
+    :func:`flash_attention_bwd_plain` on CPU tensors, kernels B2 then B3
+    on CUDA tensors (the inputs of one type, f32, f16 or bf16; the
+    gradients in it)."""
+    if all(x.device.type == "cpu" for x in (q, k, v, out, dout)):
+        return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                         window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda tensors, "
+                         f"got {q.device}")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_attention_bwd: {q.dtype} is not one of "
+                        f"{sorted(map(str, DTYPE_CODES))}")
+    if Hkv == 0 or Hq % Hkv or D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}: needs Hq a multiple of Hkv and "
+                         f"head_dim <= {MAX_HEAD_DIM}")
+    qc, kc, vc, oc, gc = _launch.check("flash_attention_bwd", q.device, [
+        ("q", q, q.dtype, (B, S, Hq, D)),
+        ("k", k, q.dtype, (B, T, Hkv, D)),
+        ("v", v, q.dtype, (B, T, Hkv, D)),
+        ("out", out, q.dtype, (B, S, Hq, D)),
+        ("dout", dout.to(q.dtype), q.dtype, (B, S, Hq, D))])
+    if qc.numel() == 0 or kc.numel() == 0:
+        return torch.zeros_like(qc), torch.zeros_like(kc), \
+            torch.zeros_like(vc)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    dq, lse, delta = flash_attention_bwd_dq(qc, kc, vc, oc, gc, **kw)
+    dk, dv = flash_attention_bwd_dkdv(qc, kc, vc, gc, lse, delta, **kw)
+    return dq, dk, dv
+
+
 def reset_launches() -> None:
-    """Set the total and every route's count to 0."""
+    """Set the forward's total and every route's count, and each backward
+    kernel's, to 0."""
     flash_attention.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(KERNELS, 0)
+    flash_attention_bwd_dq.launches = 0
+    flash_attention_bwd_dkdv.launches = 0
 
 
 reset_launches()

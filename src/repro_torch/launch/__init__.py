@@ -1,2 +1,3 @@
 """The port's launchers: process meshes for the sharded paths
-(:mod:`.mesh`) and the serving CLI (:mod:`.serve`)."""
+(:mod:`.mesh`), the serving CLI (:mod:`.serve`) and the training CLI
+(:mod:`.train`)."""

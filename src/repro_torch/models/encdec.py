@@ -1,6 +1,5 @@
 """Encoder–decoder transformer of the port, seamless-m4t's backbone (a
-port of :mod:`repro.models.encdec`, all but ``lm_loss``, which waits for
-training).
+port of :mod:`repro.models.encdec`).
 
 The audio frontend is a stub: ``src_embeds`` are precomputed frame
 embeddings.  The encoder is a bidirectional self-attention stack (RoPE
@@ -8,7 +7,10 @@ on queries and keys, then ``enc_norm``); a decoder layer is causal
 self-attention, cross-attention on the encoder's output without RoPE,
 then the gated MLP.  The unembedding is tied to ``embed``, in f32.
 Where the reference scans over the stacked layers, the port loops over
-them.
+them (each stacked leaf split once, :func:`~.transformer.unstack`), and
+where it rematerialises each layer (``jax.checkpoint``), the port keeps
+the activations: the encoder–decoder is not on the card's training path.
+:func:`lm_loss` is the mean next-token cross entropy.
 
 Attention runs the port's CUDA kernel on the card: the encoder's and the
 cross-attention's calls are :func:`repro_torch.kernels.flash_attention
@@ -31,7 +33,8 @@ from repro_torch.models.layers import (apply_norm, apply_rope,
                                        decode_attention, einsum)
 from repro_torch.models.transformer import (TensorSpec, _dtype, _ffn,
                                             _mlp_specs, _project_qkv, _stack,
-                                            embed_tokens, take, unembed)
+                                            embed_tokens, take, unembed,
+                                            unstack)
 
 Params = Dict[str, Any]
 
@@ -85,8 +88,7 @@ def encode(params: Params, cfg: ArchConfig,
     parameters' type (moved to their device)."""
     x = src_embeds.to(params["embed"].device, _dtype(cfg))
     pos = _positions(x.shape[1], x.device)
-    for j in range(cfg.n_enc_layers):
-        p = take(params["enc"], j)
+    for p in unstack(params["enc"], cfg.n_enc_layers):
         h = apply_norm(cfg.norm_kind, x, p["ln1"])
         q, k, v = _project_qkv(p, h)
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -122,10 +124,23 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     enc_out = encode(params, cfg, batch["src_embeds"])
     x = embed_tokens(params, cfg, batch["tokens"])
     pos = _positions(x.shape[1], x.device)
-    for j in range(cfg.n_dec_layers):
-        x = _dec_layer(cfg, take(params["dec"], j), x, enc_out, pos)
+    for p in unstack(params["dec"], cfg.n_dec_layers):
+        x = _dec_layer(cfg, p, x, enc_out, pos)
     return (unembed(params, cfg, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The mean cross entropy of each target token after the first given
+    the ones before it.  Returns (loss, {"loss", "aux"})."""
+    logits, aux = forward(params, cfg, batch)
+    lb = batch["tokens"].to(logits.device).long()[:, 1:]
+    lg = logits[:, :-1]
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, lb[..., None])[..., 0]
+    loss = torch.mean(logz - gold)
+    return loss, {"loss": loss, "aux": aux}
 
 
 # -- decoding ----------------------------------------------------------------

@@ -13,10 +13,23 @@ family config holds a ``moe`` subtree (router [D, E], experts padded to
 in place of ``mlp``.  Where the reference scans over periods, the port
 loops over them.
 
-Three entry points:
+Four entry points:
   * :func:`forward`      — full-sequence logits (+ the MoE aux loss)
+  * :func:`lm_loss`      — next-token cross entropy (+ the aux loss):
+                            the train path
   * :func:`prefill`      — forward that also fills the decode cache
   * :func:`decode_step`  — one token against the cache: the serve path
+
+In training (grad mode on, parameters requiring grad) :func:`forward`
+rematerialises each period of
+``block_pattern`` as the reference's ``jax.checkpoint(period_body)``
+does (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="full"``
+saves nothing inside a period, ``"dots"`` saves the matrix products'
+outputs (a selective-checkpoint policy, the counterpart of
+``dots_with_no_batch_dims_saveable``); the remainder layers are not
+checkpointed, as in the reference.  A stacked leaf is split into its
+periods once a forward (``torch.unbind``), so its gradient is one stack
+of the periods' gradients.
 
 The two sequence mixers run the port's CUDA kernels on the card:
 attention through :func:`repro_torch.kernels.flash_attention
@@ -39,13 +52,16 @@ product is full float32 only with TF32 off: the port leaves
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common.tree import leaves_with_paths, map_with_paths
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import recurrent as rec
@@ -183,21 +199,20 @@ def _block_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
     raise _unknown(kind)
 
 
-def map_tree(fn, tree, path=()):
-    """``fn(path, leaf)`` over a nested dict, keys in sorted order."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, tree[k], path + (k,)) for k in sorted(tree)}
-    return fn(path, tree)
+def _not_dict(x) -> bool:
+    return not isinstance(x, dict)
 
 
-def leaves(tree, path=()):
+def map_tree(fn, tree):
+    """``fn(path, leaf)`` over a nested dict, keys in sorted order; a
+    :class:`TensorSpec` or a tuple is a leaf."""
+    return map_with_paths(fn, tree, _not_dict)
+
+
+def leaves(tree):
     """(path, leaf) pairs of a nested dict, keys in sorted order (JAX's
     flattening order)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from leaves(tree[k], path + (k,))
-    else:
-        yield path, tree
+    return leaves_with_paths(tree, _not_dict)
 
 
 def _stack(specs: Dict[str, Any], n: int) -> Dict[str, Any]:
@@ -422,13 +437,25 @@ def take(tree: Params, j: int) -> Params:
     return map_tree(lambda _, x: x[j], tree)
 
 
+def unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` periods of a tree stacked over periods, each leaf split
+    once by ``torch.unbind`` (views; its backward stacks the periods'
+    gradients into one tensor, where indexing a period at a time would
+    make a full-size gradient for each)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][j] for k in tree} for j in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _layers(cfg: ArchConfig, params: Params):
     """(cache key group, key, kind, block params) in layer order."""
     n_per, n_rem = group_layout(cfg)
+    periods = unstack(params["blocks"], n_per)
     for j in range(n_per):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}_{kind}"
-            yield ("blocks", j), key, kind, take(params["blocks"][key], j)
+            yield ("blocks", j), key, kind, periods[j][key]
     for i in range(n_rem):
         kind = cfg.block_pattern[i]
         key = f"r{i}_{kind}"
@@ -484,17 +511,86 @@ def unembed(params: Params, cfg: ArchConfig, x: torch.Tensor
     return logits
 
 
-def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+#: the matrix products whose outputs ``remat_policy="dots"`` saves
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematerialised(fn, policy: str):
+    """``fn`` recomputed in the backward pass: nothing inside saved
+    ("full"), or the matrix products' outputs saved ("dots")."""
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    kw: Dict[str, Any] = dict(use_reentrant=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: ckpt.checkpoint(fn, *args, **kw)
+
+
+def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True, remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. Returns (logits [B,S,V] f32, aux_loss: the
-    sum of the MoE layers' aux losses in layer order, 0 without MoE)."""
+    sum of the MoE layers' aux losses in layer order, 0 without MoE).
+    With ``remat``, grad mode on and a parameter requiring grad, each
+    period is rematerialised under ``remat_policy`` (see the module doc);
+    otherwise (serving) the periods run as they are."""
     x, pos, pos3 = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, _, kind, p in _layers(cfg, params):
-        x, a = apply_block(cfg, kind, p, x, pos, pos3)
+    n_per, n_rem = group_layout(cfg)
+
+    def period_body(x, aux, period):
+        for i, kind in enumerate(cfg.block_pattern):
+            x, a = apply_block(cfg, kind, period[f"p{i}_{kind}"], x, pos,
+                               pos3)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    body = period_body
+    if remat and torch.is_grad_enabled() and any(
+            p.requires_grad for _, p in leaves(params)):
+        body = _rematerialised(period_body, remat_policy)
+    for period in unstack(params["blocks"], n_per):
+        x, aux = body(x, aux, period)
+    for i in range(n_rem):
+        kind = cfg.block_pattern[i]
+        x, a = apply_block(cfg, kind, params["rem"][f"r{i}_{kind}"], x, pos,
+                           pos3)
         if a is not None:
             aux = aux + a
     return unembed(params, cfg, x), aux
+
+
+def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True, aux_weight: float = 0.01,
+            remat_policy: str = "full"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ ``aux_weight`` × the MoE aux loss), f32.
+    Labels default to the shifted tokens; an ``embeds`` batch supplies
+    ``labels`` (negative ones are ignored).  Returns (total, {"loss",
+    "aux"})."""
+    logits, aux = forward(params, cfg, batch, remat, remat_policy)
+    if "labels" in batch:
+        labels = batch["labels"].to(logits.device).long()
+        valid = labels >= 0
+        lg, lb = logits, torch.clamp_min(labels, 0)
+    else:
+        lg = logits[:, :-1]
+        lb = batch["tokens"].to(logits.device).long()[:, 1:]
+        valid = torch.ones_like(lb, dtype=torch.bool)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, lb[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    loss = nll.sum() / torch.clamp_min(valid.sum(), 1)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
