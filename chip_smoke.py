@@ -5,10 +5,11 @@
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the checkout's ``src/``.  Phases, each of which fails the run:
 
-1. print the card's name and power limit, build the ten CUDA sources of
-   the ten kernels (``flash_attention`` has two routes, its backward
-   kernels B2 and B3 share a source; one ``nvcc`` each, started
-   together) and print their registers and spills;
+1. print the card's name and power limit, build the eleven CUDA sources
+   of the ten kernels (``flash_attention`` and its backward kernels B2
+   and B3 have two routes each, B2 and B3 sharing a source on each; one
+   ``nvcc`` each, started together) and print their registers and
+   spills;
 2. hold the monitor's two kernels against their plain PyTorch versions on
    the card, at small adversarial shapes (among them the grid kernel's
    128-column tile edges and odd M on odd D, so that every other row is
@@ -213,12 +214,16 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    bf16 (one query, ragged tiles, windows at the tile edges, rows that
    see no key, G = 1, 3, 7, 16, head_dims 64, 80, 128, 256, soft-cap,
    non-causal, T != S; the plain backward given ``blocked_attention``'s
-   output, the kernels the forward kernel's), then at the training shapes
+   output, the kernels the forward kernel's; f16 and bf16 counted on the
+   tensor cores, two launches there bitwise equal, and run again on the
+   CUDA cores, f32 on the CUDA cores), then at the training shapes
    (olmo-1b's [4, 2048, 16, 128], recurrentgemma-9b's MQA 16:1 at 256 in
    a 2048 window) and at gemma2-2b's soft-capped and seamless's two, the
    forward kernel first held to ``blocked_attention`` within
-   ``FLASH_MAIN_REL_L2`` at each, each backward kernel timed
-   beside its bound, the plain backward and the backward of
+   ``FLASH_MAIN_REL_L2`` at each, both routes of the backward held to
+   ``BWD_TOL``, each backward kernel timed beside its bound, the
+   CUDA-core kernels on the same inputs (the tensor cores must be
+   faster), the plain backward and the backward of
    ``scaled_dot_product_attention`` (or of compiled ``flex_attention``
    where soft-capped) (15a); one train step's loss and gradients at
    ``REDUCED`` in f32 on the card and the CPU for olmo-1b and
@@ -226,12 +231,13 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    olmo-1b --steps 8 --seq-len 2048 --batch 4 --sensor h100_instant`` at
    full width through the CLI's ``main`` in this process (finite loss and
    gradient norm at every step, the last loss below the first, 32
-   forward launches on the tensor cores and 16 of each backward kernel a
-   step; peak memory, median step ms, tokens/s and the simulated
+   forward launches and 16 of each backward kernel a step, all on the
+   tensor cores; peak memory, median step ms, tokens/s and the simulated
    ledger's J/step logged), then the reduced CLI in a subprocess (15c);
    recurrentgemma-9b at full width, 3 of its 38 layers, 4 steps of 2 x
    3000 tokens through ``run_training``, the same gates, 4 + 2 forward
-   and 2 + 1 + 1 backward launches a step (15d); a restart on the card at
+   and 2 + 1 + 1 backward launches a step, attention's on the tensor
+   cores (15d); a restart on the card at
    ``REDUCED``, 10 + checkpoint + 10 steps against 20 straight, the final
    losses within 1e-4 (15e).  The phase logs its wall.
 
@@ -5240,44 +5246,71 @@ def bwd_cases(dev):
     return out
 
 
+def bwd_routes(path, q, k, v, o, do, kw):
+    """B2 then B3 of route ``path`` through the wrapper's
+    ``_bwd_launch_route``, counted nowhere: (dq, dk, dv)."""
+    from repro_torch.kernels import flash_attention as kfa
+    dq, lse, delta = kfa._bwd_launch_route(path, "dq", q, k, v, o, do, **kw)
+    return (dq,) + kfa._bwd_launch_route(path, "dkdv", q, k, v, None, do,
+                                         lse, delta, **kw)
+
+
 def bwd_check(q, k, v, do, kw):
     """B2 and B3 on the card, given the forward kernel's output as in
     training, against flash_attention_bwd_plain given blocked_attention's
     output on the same inputs: each gradient in the input type, finite,
     within BWD_TOL of its type relative to the plain gradient's largest
-    |value| (absolute below 1); one launch of each counted.  Returns the
-    largest absolute difference of dq and of dk/dv, the largest relative
-    one, and the outputs."""
+    |value| (absolute below 1); one launch of each counted, on the route
+    of ``route(dtype, head_dim)``.  Where that is the tensor-core route,
+    the CUDA-core kernels run on the same inputs too (uncounted, through
+    :func:`bwd_routes`) and are held to the same bar, and a second
+    tensor-core launch must give bitwise the same dq, dk and dv.  Returns
+    {route: (largest absolute difference of dq, of dk/dv, the largest
+    relative one)} and the counted launch's outputs."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models.layers import blocked_attention
+    path = kfa.route(q.dtype, q.shape[3])
+    fns = (kfa.flash_attention_bwd_dq, kfa.flash_attention_bwd_dkdv)
     o = kfa.flash_attention(q, k, v, **kw)
-    n0 = (kfa.flash_attention_bwd_dq.launches,
-          kfa.flash_attention_bwd_dkdv.launches)
+    n0 = [(f.launches, f.launches_by_route[path]) for f in fns]
     got = kfa.flash_attention_bwd(q, k, v, o, do, **kw)
-    check((kfa.flash_attention_bwd_dq.launches,
-           kfa.flash_attention_bwd_dkdv.launches) == (n0[0] + 1, n0[1] + 1),
-          f"flash_attention_bwd at q {list(q.shape)}: not one launch of "
-          f"each kernel")
+    check([(f.launches, f.launches_by_route[path]) for f in fns]
+          == [(n + 1, r + 1) for n, r in n0],
+          f"flash_attention_bwd at q {list(q.shape)} {q.dtype}: not one "
+          f"launch of each kernel on the {path} route")
+    runs = {path: got}
+    if path == kfa.TENSOR_CORES:
+        again = bwd_routes(path, q, k, v, o, do, kw)
+        for name, g, a in zip(("dq", "dk", "dv"), got, again):
+            check(torch.equal(g, a), f"flash_attention_bwd {name} at q "
+                  f"{list(q.shape)} {q.dtype} {kw}: two launches on the "
+                  f"tensor cores differ (largest "
+                  f"{float((g.float() - a.float()).abs().max()):.3e})")
+        del again
+        runs[kfa.CUDA_CORES] = bwd_routes(kfa.CUDA_CORES, q, k, v, o, do, kw)
     del o
     want = kfa.flash_attention_bwd_plain(
         q, k, v, blocked_attention(q, k, v, **kw), do, **kw)
     torch.cuda.synchronize()
-    errs, rels = [], []
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        check(g.dtype == q.dtype and g.shape == w.shape
-              and bool(torch.isfinite(g).all()),
-              f"flash_attention_bwd {name} at q {list(q.shape)} "
-              f"{q.dtype} {kw}: {g.dtype}{tuple(g.shape)} or not finite")
-        err = float((g.float() - w.float()).abs().max())
-        scale = max(float(w.float().abs().max()), 1.0)
-        check(err <= BWD_TOL[q.dtype] * scale,
-              f"flash_attention_bwd {name} at q {list(q.shape)} k "
-              f"{list(k.shape)} {q.dtype} {kw}: largest difference "
-              f"{err:.3e} from the plain version, above "
-              f"{BWD_TOL[q.dtype]:g} x {scale:.3e}")
-        errs.append(err)
-        rels.append(err / scale)
-    return errs[0], max(errs[1:]), max(rels), got
+    errs = {}
+    for r, grads in runs.items():
+        abs_errs, rels = [], []
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            check(g.dtype == q.dtype and g.shape == w.shape
+                  and bool(torch.isfinite(g).all()),
+                  f"flash_attention_bwd {name} ({r}) at q {list(q.shape)} "
+                  f"{q.dtype} {kw}: {g.dtype}{tuple(g.shape)} or not finite")
+            err = float((g.float() - w.float()).abs().max())
+            scale = max(float(w.float().abs().max()), 1.0)
+            check(err <= BWD_TOL[q.dtype] * scale,
+                  f"flash_attention_bwd {name} ({r}) at q {list(q.shape)} k "
+                  f"{list(k.shape)} {q.dtype} {kw}: largest difference "
+                  f"{err:.3e} from the plain version, above "
+                  f"{BWD_TOL[q.dtype]:g} x {scale:.3e}")
+            abs_errs.append(err)
+            rels.append(err / scale)
+        errs[r] = (abs_errs[0], max(abs_errs[1:]), max(rels))
+    return errs, got
 
 
 def scan_bwd_cases(dev):
@@ -5340,10 +5373,12 @@ def attention_bwd_at(dev, phase, shapes, seed):
     """``phase``'s flash_attention_bwd (15a) at the training and the
     arches' attention shapes in bf16, rows of attention_at's layout
     (label, B, S, T, Hq, Hkv, head_dim, causal, window, softcap): B2 and
-    B3 against the plain backward (:func:`bwd_check`), each kernel timed
-    alone and both together beside their bounds, the plain backward, and
-    the backward of the PyTorch call that computes the same function
-    (scaled_dot_product_attention, or at the soft-capped shapes
+    B3 on the tensor cores, and the CUDA-core kernels on the same inputs,
+    against the plain backward (:func:`bwd_check`), each kernel timed
+    alone and both together beside their bounds, the CUDA-core kernels
+    (the earlier design; the tensor cores must be faster), the plain
+    backward, and the backward of the PyTorch call that computes the same
+    function (scaled_dot_product_attention, or at the soft-capped shapes
     flex_attention compiled).  Bounds: the operations each kernel's
     outputs need, at the bf16 tensor rate, 2 * D FLOPs a kept (query
     head, key) pair for each of S, dO V^T and its own products (B2: S,
@@ -5363,7 +5398,10 @@ def attention_bwd_at(dev, phase, shapes, seed):
         check(fwd_rel <= FLASH_MAIN_REL_L2, f"{phase} {label}: "
               f"flash_attention's relative L2 difference {fwd_rel:.3e} "
               f"from blocked_attention, above {FLASH_MAIN_REL_L2:g}")
-        dq_err, dkv_err, rel, got = bwd_check(q, k, v, do, kw)
+        check(kfa.route(q.dtype, d) == kfa.TENSOR_CORES, f"{phase} "
+              f"{label}: the {kfa.route(q.dtype, d)} route")
+        errs, got = bwd_check(q, k, v, do, kw)
+        dq_err, dkv_err, rel = errs[kfa.TENSOR_CORES]
         o = kfa.flash_attention(q, k, v, **kw)
         _, lse, delta = kfa.flash_attention_bwd_dq(q, k, v, o, do, **kw)
         dq_ms = time_ms(lambda: kfa.flash_attention_bwd_dq(q, k, v, o, do,
@@ -5372,6 +5410,14 @@ def attention_bwd_at(dev, phase, shapes, seed):
             q, k, v, do, lse, delta, **kw), 5)
         both_ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do,
                                                           **kw), 5)
+        cc = kfa.CUDA_CORES
+        cc_dq_ms = time_ms(lambda: kfa._bwd_launch_route(
+            cc, "dq", q, k, v, o, do, **kw), 5)
+        cc_dkdv_ms = time_ms(lambda: kfa._bwd_launch_route(
+            cc, "dkdv", q, k, v, None, do, lse, delta, **kw), 5)
+        check(both_ms < cc_dq_ms + cc_dkdv_ms, f"{phase} {label}: B2 + B3 "
+              f"on the tensor cores {both_ms:.3f} ms, not faster than on "
+              f"the CUDA cores {cc_dq_ms + cc_dkdv_ms:.3f} ms")
         plain_ms = time_ms(lambda: kfa.flash_attention_bwd_plain(
             q, k, v, o, do, **kw), 1)
         if cap == 0.0:
@@ -5402,16 +5448,27 @@ def attention_bwd_at(dev, phase, shapes, seed):
             f"({bounds['dkdv'][0] / dkdv_ms:.2%} of {bounds['dkdv'][0]:.4f} "
             f"ms), both {both_ms:.3f} ms ({bounds['both'][0] / both_ms:.2%} "
             f"of the backward's bound {bounds['both'][0]:.4f} ms, "
-            f"{pairs:,} kept pairs); {call}: {lib_ms:.3f} ms, "
-            f"{both_ms / lib_ms:.1f}x faster than B2 + B3 (its dq's largest "
+            f"{pairs:,} kept pairs); the CUDA-core kernels on the same "
+            f"inputs: B2 {cc_dq_ms:.3f} ms, B3 {cc_dkdv_ms:.3f} ms "
+            f"({(cc_dq_ms + cc_dkdv_ms) / both_ms:.1f}x B2 + B3 on the "
+            f"tensor cores); {call}: {lib_ms:.3f} ms, "
+            f"{both_ms / lib_ms:.2f}x B2 + B3 (its dq's largest "
             f"difference from B2's {lib_diff:.3e}); plain {plain_ms:.3f} ms; "
-            f"largest differences from the plain backward: dq {dq_err:.3e}, "
-            f"dk/dv {dkv_err:.3e}, relative to the largest |gradient| "
-            f"{rel:.3e}; the forward kernel against blocked_attention: "
+            f"largest differences from the plain backward, tensor cores / "
+            f"CUDA cores: dq {dq_err:.3e} / {errs[cc][0]:.3e}, dk/dv "
+            f"{dkv_err:.3e} / {errs[cc][1]:.3e}, relative to the largest "
+            f"|gradient| {rel:.3e} / {errs[cc][2]:.3e}; two tensor-core "
+            f"launches bitwise equal; the forward kernel against "
+            f"blocked_attention: "
             f"largest {fwd_err:.3e}, relative L2 {fwd_rel:.3e}")
         out.append(dict(label=label, shape=[list(q.shape), list(k.shape)],
                         causal=causal, window=window, softcap=cap,
                         dq_ms=dq_ms, dkdv_ms=dkdv_ms, ms=both_ms,
+                        cuda_cores_dq_ms=cc_dq_ms,
+                        cuda_cores_dkdv_ms=cc_dkdv_ms,
+                        cuda_cores_max_abs_err_dq=errs[cc][0],
+                        cuda_cores_max_abs_err_dkdv=errs[cc][1],
+                        cuda_cores_max_rel_err=errs[cc][2],
                         plain_ms=plain_ms, bound_ms={n: b_[0] for n, b_ in
                                                      bounds.items()},
                         bound_by={n: b_[1] for n, b_ in bounds.items()},
@@ -5441,8 +5498,12 @@ def train_launches():
                 flash_attention_tensor_cores=kfa.flash_attention
                 .launches_by_route[kfa.TENSOR_CORES],
                 flash_attention_bwd_dq=kfa.flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dq_tensor_cores=kfa
+                .flash_attention_bwd_dq.launches_by_route[kfa.TENSOR_CORES],
                 flash_attention_bwd_dkdv=kfa.flash_attention_bwd_dkdv
                 .launches,
+                flash_attention_bwd_dkdv_tensor_cores=kfa
+                .flash_attention_bwd_dkdv.launches_by_route[kfa.TENSOR_CORES],
                 rglru_scan=krs.rglru_scan.launches,
                 rglru_scan_bwd=krs.rglru_scan_bwd.launches)
 
@@ -5524,7 +5585,7 @@ def train_cli(dev):
     the card's peak memory are read here), then the reduced default in a
     subprocess on the card.  Gates: train_gates; per step 32 forward
     launches on the tensor cores (16 layers, each recomputed once) and 16
-    of each backward kernel, no recurrence."""
+    of each backward kernel, all on the tensor cores; no recurrence."""
     import contextlib
     import io
     from repro_torch.launch import train as train_main
@@ -5544,7 +5605,10 @@ def train_cli(dev):
           f"15c: the CLI printed {lines}")
     n = TRAIN_STEPS
     want = dict(flash_attention=32 * n, flash_attention_tensor_cores=32 * n,
-                flash_attention_bwd_dq=16 * n, flash_attention_bwd_dkdv=16 * n,
+                flash_attention_bwd_dq=16 * n,
+                flash_attention_bwd_dq_tensor_cores=16 * n,
+                flash_attention_bwd_dkdv=16 * n,
+                flash_attention_bwd_dkdv_tensor_cores=16 * n,
                 rglru_scan=0, rglru_scan_bwd=0)
     check(launches == want, f"15c: launches {launches}, expected {want}")
     step_ms = train_gates("15c", res, n)
@@ -5582,7 +5646,7 @@ def train_recurrent(dev):
     RG_BATCH x RG_SEQ tokens.  Gates: train_gates; per step 4 forward
     launches of rglru_scan and 2 of flash_attention (each layer
     recomputed once), 2 of rglru_scan_bwd and 1 of each attention
-    backward kernel."""
+    backward kernel, on the tensor cores."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as tf
@@ -5604,7 +5668,9 @@ def train_recurrent(dev):
     launches = train_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     want = dict(flash_attention=2 * n, flash_attention_tensor_cores=2 * n,
-                flash_attention_bwd_dq=n, flash_attention_bwd_dkdv=n,
+                flash_attention_bwd_dq=n, flash_attention_bwd_dq_tensor_cores=n,
+                flash_attention_bwd_dkdv=n,
+                flash_attention_bwd_dkdv_tensor_cores=n,
                 rglru_scan=4 * n, rglru_scan_bwd=2 * n)
     check(launches == want, f"15d: launches {launches}, expected {want}")
     step_ms = train_gates("15d", res, n)
@@ -5664,6 +5730,17 @@ def train_restart(dev):
     return dict(straight=a, resumed=b, rel=rel)
 
 
+def bwd_routes_record(cli, name):
+    """Backward kernel ``name``'s source and 15c launches by route."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    tc = cli["launches"][f"{name}_tensor_cores"]
+    n = {kfa.TENSOR_CORES: tc, kfa.CUDA_CORES: cli["launches"][name] - tc}
+    return {r: dict(source="src/repro_torch/kernels/csrc/"
+                    + _build.SOURCES[lib], launches=n[r])
+            for r, lib in kfa.BWD_KERNELS.items()}
+
+
 def training(dev):
     """Phase 15; returns the three backward kernels' records and what it
     adds to the forward kernels' records."""
@@ -5690,16 +5767,22 @@ def training(dev):
     del scans, a, h, dh
     errs = {}
     for label, q, k, v, do, kw in bwd_cases(dev):
-        dq_err, dkv_err, rel, _ = bwd_check(q, k, v, do, kw)
-        e = errs.setdefault(q.dtype, [0.0, 0.0, 0.0])
-        errs[q.dtype] = [max(e[0], dq_err), max(e[1], dkv_err),
-                         max(e[2], rel)]
+        for r, case in bwd_check(q, k, v, do, kw)[0].items():
+            e = errs.setdefault((q.dtype, r), [0.0, 0.0, 0.0])
+            errs[(q.dtype, r)] = [max(a, b_) for a, b_ in zip(e, case)]
+    want = {(torch.float32, kfa.CUDA_CORES)} | {
+        (t, r) for t in (torch.float16, torch.bfloat16)
+        for r in (kfa.TENSOR_CORES, kfa.CUDA_CORES)}
+    check(set(errs) == want, f"15a: the adversarial cases ran on {set(errs)}")
     log("15a flash_attention_bwd (B2, B3) vs plain at 12 adversarial "
-        "shapes in each type, within BWD_TOL (" + ", ".join(
+        "shapes in each type, f16 and bf16 on the tensor cores (counted, "
+        "two launches bitwise equal) and on the CUDA cores, f32 on the "
+        "CUDA cores, within BWD_TOL (" + ", ".join(
             f"{str(t)[6:]} {x:g}" for t, x in BWD_TOL.items())
         + " of the largest |gradient|); largest differences dq / dk,dv / "
-        "relative: " + "; ".join(f"{str(t)[6:]} {e[0]:.3e} / {e[1]:.3e} / "
-                                 f"{e[2]:.3e}" for t, e in errs.items()))
+        "relative: " + "; ".join(
+            f"{str(t)[6:]} {r} {e[0]:.3e} / {e[1]:.3e} / {e[2]:.3e}"
+            for (t, r), e in errs.items()))
     shapes = attention_bwd_at(dev, "15a", TRAIN_ATTN_SHAPES, SEED + 113)
     torch.cuda.empty_cache()
     reduced = train_reduced(dev)
@@ -5713,7 +5796,9 @@ def training(dev):
     adv_dq = max(e[0] for e in errs.values())
     adv_dkv = max(e[1] for e in errs.values())
     common = dict(route="cuda", source=src + _build.SOURCES[
-        "flash_attention_bwd"], replaces=REPLACES["flash_attention"],
+        kfa.BWD_KERNELS[kfa.TENSOR_CORES]],
+        replaces=REPLACES["flash_attention"],
+        main_route=kfa.TENSOR_CORES,
         replaces_note="the backward of the TPU kernel, which had none: the "
         "reference differentiates its jnp oracle blocked_attention, "
         "src/repro/models/layers.py:149", plain_ms=main["plain_ms"],
@@ -5737,14 +5822,23 @@ def training(dev):
              bytes=scan_bytes, launches_from="15d"),
         dict(name="flash_attention_bwd_dq", launches=cli["launches"][
             "flash_attention_bwd_dq"], max_abs_err=max(
-                adv_dq, max(r["max_abs_err_dq"] for r in shapes)),
-             ms=main["dq_ms"], bound_ms=main["bound_ms"]["dq"],
-             bound_by=main["bound_by"]["dq"], launches_from="15c", **common),
+                adv_dq, max(max(r["max_abs_err_dq"],
+                                r["cuda_cores_max_abs_err_dq"])
+                            for r in shapes)),
+             ms=main["dq_ms"], cuda_cores_ms=main["cuda_cores_dq_ms"],
+             bound_ms=main["bound_ms"]["dq"],
+             bound_by=main["bound_by"]["dq"], launches_from="15c",
+             routes=bwd_routes_record(cli, "flash_attention_bwd_dq"),
+             **common),
         dict(name="flash_attention_bwd_dkdv", launches=cli["launches"][
             "flash_attention_bwd_dkdv"], max_abs_err=max(
-                adv_dkv, max(r["max_abs_err_dkdv"] for r in shapes)),
-             ms=main["dkdv_ms"], bound_ms=main["bound_ms"]["dkdv"],
+                adv_dkv, max(max(r["max_abs_err_dkdv"],
+                                 r["cuda_cores_max_abs_err_dkdv"])
+                             for r in shapes)),
+             ms=main["dkdv_ms"], cuda_cores_ms=main["cuda_cores_dkdv_ms"],
+             bound_ms=main["bound_ms"]["dkdv"],
              bound_by=main["bound_by"]["dkdv"], launches_from="15c",
+             routes=bwd_routes_record(cli, "flash_attention_bwd_dkdv"),
              **common)]
     extras = {"flash_attention": dict(launches_15c=cli["launches"][
         "flash_attention"], launches_15d=rg["launches"]["flash_attention"]),

@@ -34,6 +34,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_tc": "flash_attention_tc.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_bwd_tc": "flash_attention_bwd_tc.cu",
 }
 
 # -fmad=false keeps every product separately rounded, as the plain

@@ -31,15 +31,18 @@ Pallas kernel's oracle.  The model's attention blocks call
 Gradients flow through a :class:`torch.autograd.Function` whenever grad
 mode is on and q, k or v requires grad: its forward is the same route
 and launch, and it saves q, k, v and the output; its backward is
-:func:`flash_attention_bwd`, two CUDA kernels in
-``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dq`, which
-also writes the rows' log-sum-exp and rowsum(dO ∘ O), then
-:func:`flash_attention_bwd_dkdv`), or their plain version
-:func:`flash_attention_bwd_plain` on CPU tensors.  The TPU kernel had no
-backward (the reference trains through ``jax.grad`` of
-``blocked_attention``), so these replace no TPU kernel.  With grad off,
-:func:`flash_attention` is the forward alone, its launches and routes as
-they were.
+:func:`flash_attention_bwd`, two CUDA kernels
+(:func:`flash_attention_bwd_dq`, which also writes the rows' log-sum-exp
+and rowsum(dO ∘ O), then :func:`flash_attention_bwd_dkdv`), or their
+plain version :func:`flash_attention_bwd_plain` on CPU tensors.  The
+backward takes the forward's route by the same rule (:data:`BWD_KERNELS`):
+``csrc/flash_attention_bwd_tc.cu`` on ``wgmma`` and TMA for the 16-bit
+inputs of the tensor-core route, ``csrc/flash_attention_bwd.cu`` (f32
+FMAs) for the rest; each kernel counts its ``launches`` and
+``launches_by_route``.  The TPU kernel had no backward (the reference
+trains through ``jax.grad`` of ``blocked_attention``), so these replace
+no TPU kernel.  With grad off, :func:`flash_attention` is the forward
+alone, its launches and routes as they were.
 """
 from __future__ import annotations
 
@@ -58,6 +61,9 @@ TENSOR_CORES = "tensor_cores"
 CUDA_CORES = "cuda_cores"
 #: route -> the kernel's name in ``_build.SOURCES``
 KERNELS = {TENSOR_CORES: "flash_attention_tc", CUDA_CORES: "flash_attention"}
+#: route -> the backward's kernels (B2 and B3) in ``_build.SOURCES``
+BWD_KERNELS = {TENSOR_CORES: "flash_attention_bwd_tc",
+               CUDA_CORES: "flash_attention_bwd"}
 #: TMA's global address and strides are multiples of 16 bytes
 _TMA_ALIGN = 16
 #: query positions a step of the plain backward holds against every key
@@ -233,35 +239,60 @@ def _bwd_args(q, k, v, *, causal, window, softcap) -> tuple:
             ctypes.c_float(float(softcap)), ctypes.c_float(D ** -0.5))
 
 
+def _bwd_launch_route(path: str, kernel: str, q, k, v, out, dout, lse=None,
+                      delta=None, *, causal: bool, window: int,
+                      softcap: float) -> Tuple[torch.Tensor, ...]:
+    """Launch route ``path``'s B2 (``kernel="dq"``; returns dq, lse,
+    delta) or B3 (``kernel="dkdv"``, given B2's lse and delta; returns
+    dk, dv) on checked contiguous CUDA tensors; counts nothing.  The
+    backward's wrappers launch through it, and so can a comparison of the
+    two routes on the same inputs."""
+    if path == TENSOR_CORES:
+        q, k, v, dout = (_aligned(x) for x in (q, k, v, dout))
+        out = None if out is None else _aligned(out)
+    if kernel == "dq":
+        B, S, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+        delta = torch.empty_like(lse)
+        grads = (torch.empty_like(q),)
+        ptrs = [q, k, v, out, dout, lse, delta, grads[0], None, None]
+    else:
+        grads = (torch.empty_like(k), torch.empty_like(v))
+        ptrs = [q, k, v, None, dout, lse, delta, None, *grads]
+    name = BWD_KERNELS[path]
+    _launch.launch(name, q.device, ptrs,
+                   *_bwd_args(q, k, v, causal=causal, window=window,
+                              softcap=softcap),
+                   entry=f"{name}_{kernel}_launch")
+    return grads + (lse, delta) if kernel == "dq" else grads
+
+
 def flash_attention_bwd_dq(q, k, v, out, dout, *, causal, window, softcap
                            ) -> Tuple[torch.Tensor, ...]:
-    """Kernel B2 on checked contiguous CUDA tensors: returns (dq in q's
-    type, lse [B,Hq,S] f32, rowsum(dO ∘ O) [B,Hq,S] f32); one launch,
-    counted in ``flash_attention_bwd_dq.launches``."""
-    B, S, Hq, _ = q.shape
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    dq = torch.empty_like(q)
-    ptrs = [q, k, v, out, dout, lse, delta, dq, None, None]
-    rest = _bwd_args(q, k, v, causal=causal, window=window, softcap=softcap)
-    _launch.launch("flash_attention_bwd", q.device, ptrs, *rest,
-                   entry="flash_attention_bwd_dq_launch")
+    """Kernel B2 of :func:`route` on checked contiguous CUDA tensors:
+    returns (dq in q's type, lse [B,Hq,S] f32, rowsum(dO ∘ O) [B,Hq,S]
+    f32); one launch, counted in ``flash_attention_bwd_dq.launches`` and
+    its ``launches_by_route``."""
+    path = route(q.dtype, q.shape[-1])
+    dq, lse, delta = _bwd_launch_route(path, "dq", q, k, v, out, dout,
+                                       causal=causal, window=window,
+                                       softcap=softcap)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_route[path] += 1
     return dq, lse, delta
 
 
 def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window,
                              softcap) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B3 on checked contiguous CUDA tensors and B2's lse and
-    delta: returns (dk, dv) in k's type; one launch, counted in
-    ``flash_attention_bwd_dkdv.launches``."""
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    ptrs = [q, k, v, None, dout, lse, delta, None, dk, dv]
-    rest = _bwd_args(q, k, v, causal=causal, window=window, softcap=softcap)
-    _launch.launch("flash_attention_bwd", q.device, ptrs, *rest,
-                   entry="flash_attention_bwd_dkdv_launch")
+    """Kernel B3 of :func:`route` on checked contiguous CUDA tensors and
+    B2's lse and delta: returns (dk, dv) in k's type; one launch, counted
+    in ``flash_attention_bwd_dkdv.launches`` and its
+    ``launches_by_route``."""
+    path = route(q.dtype, q.shape[-1])
+    dk, dv = _bwd_launch_route(path, "dkdv", q, k, v, None, dout, lse, delta,
+                               causal=causal, window=window, softcap=softcap)
     flash_attention_bwd_dkdv.launches += 1
+    flash_attention_bwd_dkdv.launches_by_route[path] += 1
     return dk, dv
 
 
@@ -271,8 +302,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of :func:`flash_attention`:
     :func:`flash_attention_bwd_plain` on CPU tensors, kernels B2 then B3
-    on CUDA tensors (the inputs of one type, f32, f16 or bf16; the
-    gradients in it)."""
+    of :func:`route` on CUDA tensors (the inputs of one type, f32, f16 or
+    bf16; the gradients in it)."""
     if all(x.device.type == "cpu" for x in (q, k, v, out, dout)):
         return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
                                          window=window, softcap=softcap)
@@ -308,8 +339,9 @@ def reset_launches() -> None:
     kernel's, to 0."""
     flash_attention.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(KERNELS, 0)
-    flash_attention_bwd_dq.launches = 0
-    flash_attention_bwd_dkdv.launches = 0
+    for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(BWD_KERNELS, 0)
 
 
 reset_launches()

@@ -249,8 +249,12 @@ def test_tensor_core_flash_source_uses_wgmma_and_tma(needle):
     """The 16-bit route is written for Hopper's tensor cores: wgmma
     products, K/V tiles by TMA into a ring of mbarriers, registers moved
     to the consumers with setmaxnreg; cuTensorMapEncodeTiled is looked
-    up through the CUDA runtime (no -lcuda on the command line)."""
+    up through the CUDA runtime (no -lcuda on the command line).  The
+    source is read with the csrc headers it includes (hopper.cuh holds
+    the helpers it shares with the backward)."""
     src = (_build.CSRC / _build.SOURCES["flash_attention_tc"]).read_text()
+    src += "".join((_build.CSRC / h).read_text()
+                   for h in re.findall(r'#include "(\w+\.cuh)"', src))
     assert needle in src
     cmd = _build.nvcc_command("flash_attention_tc", pathlib.Path("l.so"))
     assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)

@@ -292,12 +292,16 @@ def test_cuda_attention_bwd_matches_plain(cuda, dtype, b, s, t, hq, hkv, d,
     q, k, v, do = (x.to(cuda, dtype) for x in
                    _t(*_attn_inputs(b, s, t, hq, hkv, d, s + d)))
     o = kfa.flash_attention(q, k, v, **kw)
-    n0 = (kfa.flash_attention_bwd_dq.launches,
-          kfa.flash_attention_bwd_dkdv.launches)
+    fns = (kfa.flash_attention_bwd_dq, kfa.flash_attention_bwd_dkdv)
+    # the 16-bit cases at a head_dim that is a multiple of 16 run on the
+    # tensor cores, the rest on the CUDA cores
+    path = (kfa.TENSOR_CORES if dtype != torch.float32 and d % 16 == 0
+            else kfa.CUDA_CORES)
+    n0 = [(f.launches, f.launches_by_route[path]) for f in fns]
     got = kfa.flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
-    assert (kfa.flash_attention_bwd_dq.launches,
-            kfa.flash_attention_bwd_dkdv.launches) == (n0[0] + 1, n0[1] + 1)
+    assert [(f.launches, f.launches_by_route[path]) for f in fns] == [
+        (n + 1, r + 1) for n, r in n0]
     want = kfa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == dtype
