@@ -208,8 +208,13 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    of 2 slots answering 2 requests through the ``embeds`` path (14d).
    The phase logs its wall;
 15. training, after phase 14: the three backward kernels against their
-   plain versions, ``rglru_scan_bwd`` bitwise at adversarial shapes and
-   at [2, 3000, 4096], ``flash_attention_bwd``'s B2 and B3 within
+   plain versions, ``rglru_scan_bwd`` bitwise (int32 views) at
+   adversarial shapes, at its TMA ring's tile edges at B = 3 (dh with
+   -0.0 and +-inf, decays 1 and above), at a view 4 bytes into its
+   storage and at [2, 3000, 4096], each on the route that D and the
+   pointers' alignment give (counted) and, where that is the TMA ring,
+   on the thread-loads kernel too; both routes timed there on the same
+   inputs in turns; ``flash_attention_bwd``'s B2 and B3 within
    ``BWD_TOL`` of each type at 12 adversarial shapes in f32, f16 and
    bf16 (one query, ragged tiles, windows at the tile edges, rows that
    see no key, G = 1, 3, 7, 16, head_dims 64, 80, 128, 256, soft-cap,
@@ -236,8 +241,9 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    ledger's J/step logged), then the reduced CLI in a subprocess (15c);
    recurrentgemma-9b at full width, 3 of its 38 layers, 4 steps of 2 x
    3000 tokens through ``run_training``, the same gates, 4 + 2 forward
-   and 2 + 1 + 1 backward launches a step, attention's on the tensor
-   cores (15d); a restart on the card at
+   and 2 + 1 + 1 backward launches a step, ``rglru_scan_bwd``'s on the
+   TMA ring and attention's on the tensor cores (15d); a restart on the
+   card at
    ``REDUCED``, 10 + checkpoint + 10 steps against 20 straight, the final
    losses within 1e-4 (15e).  The phase logs its wall.
 
@@ -5313,45 +5319,115 @@ def bwd_check(q, k, v, do, kw):
     return errs, got
 
 
+def scan_bwd_shapes():
+    """rglru_scan_bwd's shapes in 15a: one step, odd widths, a time axis
+    that is not a multiple of the thread-loads kernel's 16-step chunks,
+    then the TMA ring's edges at B = 3 (so that a box that would cross a
+    batch row shows): S = 1, T - 1, T, T + 1, 2T + 1 steps for T steps a
+    tile, each at D = C - 1, C, C + 4 for C channels a box."""
+    from repro_torch.kernels import rglru_scan as krs
+    t, c = krs.TMA_TILE_STEPS, krs.TMA_TILE_CHANNELS
+    edges = [(3, s, d) for s in (1, t - 1, t, t + 1, 2 * t + 1)
+             for d in (c - 1, c, c + 4)]
+    return [(1, 1, 1), (3, 17, 5), (2, 100, 513), (1, 257, 64),
+            (2, 33, 4096)] + edges
+
+
+def scan_bwd_specials(dh):
+    """Writes -0.0 into dh at its last two steps (g = dh_{S-1} = -0.0,
+    then fma(a, -0.0, -0.0)) and at the TMA ring's tile edges, every
+    third channel, and +inf and -inf at one step each of the first and
+    last channels."""
+    from repro_torch.kernels import rglru_scan as krs
+    b, s, d = dh.shape
+    t = krs.TMA_TILE_STEPS
+    dh[:, s - 1, 0::3] = -0.0
+    dh[:, max(s - 2, 0), 0::3] = -0.0
+    for e in (t - 1, t, 2 * t):
+        if e < s:
+            dh[:, e, 1::3] = -0.0
+    dh[0, s // 2, d - 1] = math.inf
+    dh[b - 1, s // 3, 0] = -math.inf
+
+
 def scan_bwd_cases(dev):
-    """rglru_scan_bwd inputs on ``dev``: one step, odd widths, a time axis
-    that is not a multiple of the kernel's 16-step chunks, decays at 1
-    and above it, then recurrentgemma's training shape [2, 3000, 4096];
-    h from the forward kernel.  Rows of (label, a, h, dh)."""
+    """rglru_scan_bwd inputs on ``dev``: :func:`scan_bwd_shapes` with
+    decays at 1 and above it and dh's :func:`scan_bwd_specials`, one of
+    them again as contiguous views 4 bytes into their storage (the
+    thread-loads route by alignment), then recurrentgemma's training
+    shape [2, 3000, 4096]; h from the forward kernel.  Rows of (label, a,
+    h, dh)."""
     from repro_torch.kernels.rglru_scan import rglru_scan
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 101)
     out = []
-    for b, s, d in ((1, 1, 1), (3, 17, 5), (2, 100, 513), (1, 257, 64),
-                    (2, 33, 4096), LM_SCAN_SHAPE):
+    for b, s, d in scan_bwd_shapes() + [LM_SCAN_SHAPE]:
         a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+        u, dh = (torch.randn((b, s, d), generator=gen, device=dev)
+                 for _ in range(2))
         if (b, s, d) != LM_SCAN_SHAPE:
             a[..., : d // 4] = 1.0
             a[..., d // 4: d // 3] *= 1.3
-        u, dh = (torch.randn((b, s, d), generator=gen, device=dev)
-                 for _ in range(2))
+            scan_bwd_specials(dh)
         out.append((f"[{b}, {s}, {d}]", a, rglru_scan(a, u), dh))
+    label, *xs = out[-3]
+    views = []
+    for x in xs:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        views.append(buf[1:].view(x.shape))
+        views[-1].copy_(x)
+    out.insert(-1, (label + " 4 bytes in", *views))
     return out
+
+
+def scan_bwd_route(path, a, h, dh):
+    """(da, du) by route ``path``'s kernel on the same inputs, uncounted."""
+    from repro_torch.kernels import rglru_scan as krs
+    da, du = torch.empty_like(a), torch.empty_like(a)
+    krs._bwd_launch_route(path, a, h, dh, da, du)
+    return da, du
 
 
 def scan_bwd_check(a, h, dh):
     """rglru_scan_bwd against its plain version on the same card inputs,
-    bitwise; one launch counted.  Returns the largest |got - want|."""
+    bitwise as int32 views (-0.0, infinities and NaNs included) on every
+    route that takes the shape: the wrapper's, one counted launch on the
+    route that D and the pointers' alignment give, and, where that is
+    the TMA ring, the thread-loads kernel forced on the same inputs
+    (uncounted).  Returns {route: the largest |got - want| over the
+    entries finite in both}."""
     from repro_torch.kernels import rglru_scan as krs
     n0 = krs.rglru_scan_bwd.launches
+    by0 = dict(krs.rglru_scan_bwd.launches_by_route)
     got = krs.rglru_scan_bwd(a, h, dh)
     want = krs.rglru_scan_bwd_plain(a, h, dh)
     torch.cuda.synchronize()
-    check(krs.rglru_scan_bwd.launches == n0 + 1,
-          f"rglru_scan_bwd at {list(a.shape)}: not one launch")
-    err = 0.0
-    for name, g, w in zip(("da", "du"), got, want):
-        diff = float((g - w).abs().max())
-        check(torch.equal(g, w), f"rglru_scan_bwd {name} at "
-              f"{list(a.shape)}: not bitwise equal to the plain version "
-              f"(largest difference {diff:.3e})")
-        err = max(err, diff)
-    return err
+    d = a.shape[2]
+    aligned = all(x.data_ptr() % 16 == 0 for x in (a, h, dh))
+    path = (krs.TMA_RING if d % 4 == 0 and aligned else krs.THREAD_LOADS)
+    by0[path] += 1
+    check(krs.rglru_scan_bwd.launches == n0 + 1
+          and krs.rglru_scan_bwd.launches_by_route == by0,
+          f"rglru_scan_bwd at {list(a.shape)}: not one launch on {path} "
+          f"({krs.rglru_scan_bwd.launches_by_route})")
+    runs = {path: got}
+    if path == krs.TMA_RING:
+        runs[krs.THREAD_LOADS] = scan_bwd_route(krs.THREAD_LOADS, a, h, dh)
+        torch.cuda.synchronize()
+    errs = {}
+    for r, outs in runs.items():
+        errs[r] = 0.0
+        for name, g, w in zip(("da", "du"), outs, want):
+            differ = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+            both = torch.isfinite(g) & torch.isfinite(w)
+            diff = float((g - w)[both].abs().max()) if bool(both.any()) \
+                else 0.0
+            check(differ == 0, f"rglru_scan_bwd {name} ({r}) at "
+                  f"{list(a.shape)}: {differ} elements not bitwise equal "
+                  f"to the plain version (largest finite difference "
+                  f"{diff:.3e})")
+            errs[r] = max(errs[r], diff)
+    return errs
 
 
 def library_bwd_ms(run, ins, dout):
@@ -5487,8 +5563,7 @@ def reset_train_launches():
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import rglru_scan as krs
     kfa.reset_launches()
-    krs.rglru_scan.launches = 0
-    krs.rglru_scan_bwd.launches = 0
+    krs.reset_launches()
 
 
 def train_launches():
@@ -5505,7 +5580,9 @@ def train_launches():
                 flash_attention_bwd_dkdv_tensor_cores=kfa
                 .flash_attention_bwd_dkdv.launches_by_route[kfa.TENSOR_CORES],
                 rglru_scan=krs.rglru_scan.launches,
-                rglru_scan_bwd=krs.rglru_scan_bwd.launches)
+                rglru_scan_bwd=krs.rglru_scan_bwd.launches,
+                rglru_scan_bwd_tma_ring=krs.rglru_scan_bwd
+                .launches_by_route[krs.TMA_RING])
 
 
 def train_reduced(dev):
@@ -5609,7 +5686,7 @@ def train_cli(dev):
                 flash_attention_bwd_dq_tensor_cores=16 * n,
                 flash_attention_bwd_dkdv=16 * n,
                 flash_attention_bwd_dkdv_tensor_cores=16 * n,
-                rglru_scan=0, rglru_scan_bwd=0)
+                rglru_scan=0, rglru_scan_bwd=0, rglru_scan_bwd_tma_ring=0)
     check(launches == want, f"15c: launches {launches}, expected {want}")
     step_ms = train_gates("15c", res, n)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -5645,8 +5722,8 @@ def train_recurrent(dev):
     period: rglru, rglru, attn), through run_training: RG_STEPS steps of
     RG_BATCH x RG_SEQ tokens.  Gates: train_gates; per step 4 forward
     launches of rglru_scan and 2 of flash_attention (each layer
-    recomputed once), 2 of rglru_scan_bwd and 1 of each attention
-    backward kernel, on the tensor cores."""
+    recomputed once), 2 of rglru_scan_bwd on the TMA ring and 1 of each
+    attention backward kernel, on the tensor cores."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as tf
@@ -5671,7 +5748,8 @@ def train_recurrent(dev):
                 flash_attention_bwd_dq=n, flash_attention_bwd_dq_tensor_cores=n,
                 flash_attention_bwd_dkdv=n,
                 flash_attention_bwd_dkdv_tensor_cores=n,
-                rglru_scan=4 * n, rglru_scan_bwd=2 * n)
+                rglru_scan=4 * n, rglru_scan_bwd=2 * n,
+                rglru_scan_bwd_tma_ring=2 * n)
     check(launches == want, f"15d: launches {launches}, expected {want}")
     step_ms = train_gates("15d", res, n)
     energy = train_energy(res)
@@ -5752,18 +5830,37 @@ def training(dev):
     torch.backends.cudnn.allow_tf32 = False
     # 15a: the backward kernels against their plain versions
     scans = scan_bwd_cases(dev)
-    scan_err = max(scan_bwd_check(a, h, dh) for _, a, h, dh in scans)
-    log("15a rglru_scan_bwd vs plain, bitwise equal at "
+    scan_errs = {}
+    for _, a, h, dh in scans:
+        for r, e in scan_bwd_check(a, h, dh).items():
+            scan_errs[r] = max(scan_errs.get(r, 0.0), e)
+    check(set(scan_errs) == set(krs.BWD_KERNELS),
+          f"15a: rglru_scan_bwd's cases ran on {set(scan_errs)}")
+    log("15a rglru_scan_bwd vs plain, bitwise equal (int32 views; dh with "
+        "-0.0 and +-inf, decays 1 and above) on the route D and "
+        "alignment give, counted, and on the thread-loads kernel where "
+        "that is the TMA ring, at "
         + "; ".join(label for label, *_ in scans)
-        + f" (largest difference {scan_err:.3e})")
+        + " (largest finite difference "
+        + ", ".join(f"{r} {e:.3e}" for r, e in scan_errs.items()) + ")")
     _, a, h, dh = scans[-1]
-    scan_ms = time_ms(lambda: krs.rglru_scan_bwd(a, h, dh), 20)
+    scan_ms = {r: [] for r in krs.BWD_KERNELS}
+    for r in (krs.TMA_RING, krs.THREAD_LOADS, krs.THREAD_LOADS,
+              krs.TMA_RING):
+        outs = (torch.empty_like(a), torch.empty_like(a))
+        scan_ms[r].append(time_ms(
+            lambda: krs._bwd_launch_route(r, a, h, dh, *outs), 20))
     scan_plain_ms = time_ms(lambda: krs.rglru_scan_bwd_plain(a, h, dh), 1)
     scan_bytes = 5 * a.numel() * 4
     scan_bound = scan_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"15a rglru_scan_bwd at {list(a.shape)} f32: kernel {scan_ms:.4f} "
-        f"ms, {scan_bound / scan_ms:.1%} of the bound {scan_bound:.4f} ms "
-        f"(bytes: {scan_bytes:,}); plain {scan_plain_ms:.3f} ms")
+    log(f"15a rglru_scan_bwd at {list(a.shape)} f32, the two routes on the "
+        f"same inputs in turns (tma_ring, thread_loads, thread_loads, "
+        f"tma_ring): " + "; ".join(
+            f"{r} {' / '.join(f'{t:.4f}' for t in ts)} ms, "
+            f"{scan_bound / min(ts):.1%} of the bound" for r, ts in
+            scan_ms.items())
+        + f"; bound {scan_bound:.4f} ms (bytes: {scan_bytes:,}); plain "
+        f"{scan_plain_ms:.3f} ms")
     del scans, a, h, dh
     errs = {}
     for label, q, k, v, do, kw in bwd_cases(dev):
@@ -5811,15 +5908,26 @@ def training(dev):
         reduced_15b=reduced, restart_15e=restart, phase_15_s=secs)
     records = [
         dict(name="rglru_scan_bwd", route="cuda",
-             source=src + _build.SOURCES["rglru_scan_bwd"],
+             source=src + _build.SOURCES[krs.BWD_KERNELS[krs.TMA_RING]],
              replaces=REPLACES["rglru_scan"],
              replaces_note="the backward of the TPU kernel, which had none: "
              "the reference differentiates its jnp oracle rglru_scan_ref, "
              "src/repro/models/recurrent.py:66",
-             launches=rg["launches"]["rglru_scan_bwd"], max_abs_err=scan_err,
-             ms=scan_ms, plain_ms=scan_plain_ms, bound_ms=scan_bound,
+             main_route=krs.TMA_RING,
+             launches=rg["launches"]["rglru_scan_bwd"],
+             max_abs_err=max(scan_errs.values()),
+             ms=sum(scan_ms[krs.TMA_RING]) / 2,
+             thread_loads_ms=sum(scan_ms[krs.THREAD_LOADS]) / 2,
+             plain_ms=scan_plain_ms, bound_ms=scan_bound,
              bound_by="bytes", library_ms=None, shape=list(LM_SCAN_SHAPE),
-             bytes=scan_bytes, launches_from="15d"),
+             bytes=scan_bytes, launches_from="15d",
+             routes={r: dict(source=src + _build.SOURCES[lib],
+                             launches=rg["launches"]["rglru_scan_bwd_tma_ring"]
+                             if r == krs.TMA_RING else
+                             rg["launches"]["rglru_scan_bwd"]
+                             - rg["launches"]["rglru_scan_bwd_tma_ring"],
+                             ms_runs=scan_ms[r], max_abs_err=scan_errs[r])
+                     for r, lib in krs.BWD_KERNELS.items()}),
         dict(name="flash_attention_bwd_dq", launches=cli["launches"][
             "flash_attention_bwd_dq"], max_abs_err=max(
                 adv_dq, max(max(r["max_abs_err_dq"],

@@ -31,6 +31,7 @@ SOURCES = {
     "fma_chain": "fma_chain.cu",
     "rglru_scan": "rglru_scan.cu",
     "rglru_scan_bwd": "rglru_scan_bwd.cu",
+    "rglru_scan_bwd_tma": "rglru_scan_bwd_tma.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_tc": "flash_attention_tc.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",

@@ -1,6 +1,7 @@
 // Hopper's asynchronous machinery, shared by the tensor-core attention
-// kernels (flash_attention_tc.cu, flash_attention_bwd_tc.cu): mbarriers,
-// TMA loads of 4-D tensor maps, wgmma shared-memory descriptors for the
+// kernels (flash_attention_tc.cu, flash_attention_bwd_tc.cu) and the
+// RG-LRU backward's TMA ring (rglru_scan_bwd_tma.cu): mbarriers, TMA loads
+// and stores of 4-D tensor maps, wgmma shared-memory descriptors for the
 // 128-byte swizzle, and the warpgroup products the kernels issue.
 //
 // Layout the products assume.  A tile of rows with 64 16-bit elements a
@@ -72,6 +73,42 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h),
       "r"(t), "r"(b)
       : "memory");
+}
+
+// one box of a 4-D map from shared memory to global memory, in the
+// calling thread's bulk group; elements outside the tensor are not
+// written.  The threads that wrote the box first run fence_async_shared()
+// and meet the calling thread at a barrier.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int d0, int h, int t,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(d0), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// makes this thread's writes to shared memory visible to TMA
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_group() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read their
+// shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until this thread's bulk groups are complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading

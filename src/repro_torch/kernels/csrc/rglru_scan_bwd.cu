@@ -27,6 +27,10 @@
 //
 // Bound on an H100 SXM: bytes, 5 * B * S * D * 4 (a, h and dh read once,
 // da and du written once) at 3.35 TB/s.
+//
+// The wrapper's route() sends D a multiple of 4 with 16-byte aligned
+// pointers (every model width) to rglru_scan_bwd_tma.cu, a TMA ring that
+// computes the same function bitwise; this kernel takes the rest.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

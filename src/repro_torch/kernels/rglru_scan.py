@@ -1,6 +1,7 @@
 """The RG-LRU linear recurrence: the CUDA ``rglru_scan`` kernel
-(``csrc/rglru_scan.cu``), its backward kernel ``rglru_scan_bwd``
-(``csrc/rglru_scan_bwd.cu``) and their plain PyTorch versions.
+(``csrc/rglru_scan.cu``), its backward ``rglru_scan_bwd`` on two routes
+(``csrc/rglru_scan_bwd_tma.cu``, ``csrc/rglru_scan_bwd.cu``) and their
+plain PyTorch versions.
 
 Replaces the TPU kernel ``_rglru_kernel`` (``rglru_scan``,
 ``src/repro/kernels/rglru_scan.py:22,40``): h_t = a_t ⊙ h_{t−1} + u_t
@@ -20,6 +21,23 @@ and it saves a (f32) and the f32 output h; its backward is
 trains through ``jax.grad`` of its jnp oracle), so ``rglru_scan_bwd``
 replaces no TPU kernel.  With grad off, :func:`rglru_scan` is the
 forward alone: one launch a call, nothing saved.
+
+The backward's two routes compute the same function bitwise; the
+inputs' shape and alignment choose between them before launch
+(:func:`route`), and a failed encode or launch raises, it never takes
+the other route:
+
+* ``tma_ring`` (``csrc/rglru_scan_bwd_tma.cu``): a producer warp brings
+  tiles of :data:`TMA_TILE_STEPS` steps × :data:`TMA_TILE_CHANNELS`
+  channels by TMA into a ring in shared memory, a consumer warp runs the
+  chain over them.  TMA needs 16-byte aligned strides and addresses: D a
+  multiple of 4 and every pointer 16-byte aligned (every model width).
+* ``thread_loads`` (``csrc/rglru_scan_bwd.cu``): one thread a channel
+  loading its own steps, for every other input (odd widths, a view that
+  starts 4 bytes into its storage).
+
+``rglru_scan_bwd.launches`` counts the backward's launches and
+``rglru_scan_bwd.launches_by_route`` each route's.
 """
 from __future__ import annotations
 
@@ -29,6 +47,16 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _launch
+
+TMA_RING = "tma_ring"
+THREAD_LOADS = "thread_loads"
+#: route -> the backward's kernel in ``_build.SOURCES``
+BWD_KERNELS = {TMA_RING: "rglru_scan_bwd_tma", THREAD_LOADS: "rglru_scan_bwd"}
+#: the TMA route's tile: steps and channels of a box (``kSteps`` and
+#: ``kChannels`` in its source)
+TMA_TILE_STEPS = 16
+TMA_TILE_CHANNELS = 32
+_TMA_ALIGN = 16
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -119,9 +147,6 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return _scan_f32(a, u).to(u.dtype)
 
 
-rglru_scan.launches = 0
-
-
 def rglru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor,
                          dh: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,8 +154,8 @@ def rglru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor,
     dh_{S-1}, g_t = fma(a_{t+1}, g_{t+1}, dh_t); du = g and da_t = g_t ·
     h_{t-1} with h_{-1} = 0.  a, h (the forward's f32 output) and dh are
     f32 [B, S, D]; returns (da, du), f32.  Each step is rounded as
-    ``csrc/rglru_scan_bwd.cu`` rounds it (one FMA, one product), so the
-    two agree bitwise."""
+    both routes' kernels round it (one FMA, one product), so the three
+    agree bitwise."""
     assert a.shape == h.shape == dh.shape and a.dim() == 3, (
         a.shape, h.shape, dh.shape)
     a, h, dh = a.float(), h.float(), dh.float()
@@ -148,12 +173,47 @@ def rglru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor,
     return da, du
 
 
+def route(D: int, tensors) -> str:
+    """The backward's route for D channels and the CUDA tensors it passes
+    (a, h, dh, da, du, contiguous): ``tma_ring`` when D is a multiple of
+    4 and every data pointer is 16-byte aligned (TMA's strides and base
+    addresses), else ``thread_loads``.  A choice by shape and alignment,
+    made before launch."""
+    if D % 4 == 0 and all(x.data_ptr() % _TMA_ALIGN == 0 for x in tensors):
+        return TMA_RING
+    return THREAD_LOADS
+
+
+def _bwd_launch_route(path: str, a, h, dh, da, du) -> None:
+    """Launch route ``path``'s kernel on checked contiguous f32 CUDA
+    tensors [B, S, D], writing da and du; counts nothing.
+    :func:`rglru_scan_bwd` launches through it, and so can a comparison
+    of the two routes on the same inputs."""
+    B, S, D = a.shape
+    _launch.launch(BWD_KERNELS[path], a.device, [a, h, dh, da, du],
+                   ctypes.c_int64(B), ctypes.c_int64(S), ctypes.c_int64(D))
+
+
+def _bwd_launch(a, h, dh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(da, du) by the kernel of :func:`route` on checked contiguous f32
+    CUDA tensors; one launch, counted in ``rglru_scan_bwd.launches`` and
+    its ``launches_by_route``."""
+    da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    du = torch.empty_like(da)
+    if da.numel() == 0:
+        return da, du
+    path = route(a.shape[2], (a, h, dh, da, du))
+    _bwd_launch_route(path, a, h, dh, da, du)
+    rglru_scan_bwd.launches += 1
+    rglru_scan_bwd.launches_by_route[path] += 1
+    return da, du
+
+
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(da, du) of the recurrence, f32 [B, S, D]:
-    :func:`rglru_scan_bwd_plain` on CPU tensors, the CUDA kernel
-    ``rglru_scan_bwd`` (one launch, counted in ``rglru_scan_bwd.launches``)
-    on CUDA tensors."""
+    :func:`rglru_scan_bwd_plain` on CPU tensors, the kernel of
+    :func:`route` on CUDA tensors (one launch, counted)."""
     if all(x.device.type == "cpu" for x in (a, h, dh)):
         return rglru_scan_bwd_plain(a, h, dh)
     if a.device.type != "cuda":
@@ -162,18 +222,17 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
     shape = tuple(a.shape)
     if len(shape) != 3:
         raise ValueError(f"rglru_scan_bwd: a {shape} must be [B, S, D]")
-    ac, hc, dhc = _launch.check("rglru_scan_bwd", a.device, [
+    return _bwd_launch(*_launch.check("rglru_scan_bwd", a.device, [
         ("a", a, torch.float32, shape), ("h", h, torch.float32, shape),
-        ("dh", dh, torch.float32, shape)])
-    da = torch.empty(shape, dtype=torch.float32, device=a.device)
-    du = torch.empty_like(da)
-    if da.numel() == 0:
-        return da, du
-    B, S, D = shape
-    _launch.launch("rglru_scan_bwd", a.device, [ac, hc, dhc, da, du],
-                   ctypes.c_int64(B), ctypes.c_int64(S), ctypes.c_int64(D))
-    rglru_scan_bwd.launches += 1
-    return da, du
+        ("dh", dh, torch.float32, shape)]))
 
 
-rglru_scan_bwd.launches = 0
+def reset_launches() -> None:
+    """Set the forward's and the backward's counts, and each of the
+    backward's routes', to 0."""
+    rglru_scan.launches = 0
+    rglru_scan_bwd.launches = 0
+    rglru_scan_bwd.launches_by_route = dict.fromkeys(BWD_KERNELS, 0)
+
+
+reset_launches()

@@ -138,9 +138,23 @@ def test_rglru_autograd_keeps_the_input_types():
 
 
 def test_rglru_bwd_source_writes_the_fma_and_product():
-    src = (_build.CSRC / _build.SOURCES["rglru_scan_bwd"]).read_text()
-    assert "g = __fmaf_rn(a_next, g, cd[i]);" in src
-    assert "__fmul_rn(g, ch[i])" in src
+    """Both routes' sources (the TMA ring and the thread-loads kernel)
+    write the chain's step as one ``__fmaf_rn`` of the carried g (a_{t+1}
+    · g + dh_t) and the product as one ``__fmul_rn`` of g by h_{t-1}, with
+    no other rounding mode or fused call; -fmad=false stays in the build's
+    flags, so no product is contracted.  Comments are left out."""
+    assert set(krs.BWD_KERNELS.values()) == {"rglru_scan_bwd",
+                                             "rglru_scan_bwd_tma"}
+    for name in krs.BWD_KERNELS.values():
+        src = re.sub(r"//[^\n]*", "", (
+            _build.CSRC / _build.SOURCES[name]).read_text())
+        assert len(re.findall(r"__fmaf_rn\(", src)) == 1, name
+        assert re.search(r"\bg = [^;]*__fmaf_rn\([\w\[\]]+, g, "
+                         r"[\w\[\]]+\);", src), name
+        assert len(re.findall(r"__fmul_rn\(", src)) == 1, name
+        assert re.search(r"__fmul_rn\(g, [\w\[\]]+\)", src), name
+        assert not re.search(r"\bfmaf?\(|__fmaf_r[zdu]|__fmul_r[zdu]|"
+                             r"__fadd_r", src), name
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -267,19 +281,45 @@ def cuda():
     return torch.device("cuda")
 
 
+#: the TMA ring's edges: S around its tile of steps, D around its box of
+#: channels, B = 3
+_T, _C = krs.TMA_TILE_STEPS, krs.TMA_TILE_CHANNELS
+RING_EDGES = [(3, s, d) for s in (1, _T - 1, _T, _T + 1, 2 * _T + 1)
+              for d in (_C - 1, _C, _C + 4)]
+
+
 @pytest.mark.parametrize("b, s, d", [(1, 1, 1), (3, 17, 5), (2, 100, 513),
-                                     (2, 70, 4096)])
+                                     (2, 70, 4096)] + RING_EDGES)
 def test_cuda_rglru_bwd_matches_plain_bitwise(cuda, b, s, d):
+    """Each route that takes the shape, bitwise as uint32 views (dh holds
+    -0.0 at its last two steps and the ring's tile edges): the wrapper's,
+    one counted launch on the TMA ring for D a multiple of 4, else on the
+    thread-loads kernel; and the thread-loads kernel forced on the same
+    inputs where the wrapper took the ring."""
     a, u, dh = _t(*_scan_inputs(b, s, d, d))
+    for e in (s - 1, max(s - 2, 0), _T - 1, _T):
+        if e < s:
+            dh[:, e, 0::2] = -0.0
     h = krs.rglru_scan_plain(a, u)
-    n0 = krs.rglru_scan_bwd.launches
-    got = krs.rglru_scan_bwd(a.to(cuda), h.to(cuda), dh.to(cuda))
+    ac, hc, dhc = (x.to(cuda) for x in (a, h, dh))
+    path = krs.TMA_RING if d % 4 == 0 else krs.THREAD_LOADS
+    n0 = (krs.rglru_scan_bwd.launches,
+          krs.rglru_scan_bwd.launches_by_route[path])
+    runs = {path: krs.rglru_scan_bwd(ac, hc, dhc)}
     torch.cuda.synchronize()
-    assert krs.rglru_scan_bwd.launches == n0 + 1
+    assert (krs.rglru_scan_bwd.launches,
+            krs.rglru_scan_bwd.launches_by_route[path]) == (n0[0] + 1,
+                                                            n0[1] + 1)
+    if path == krs.TMA_RING:
+        outs = (torch.empty_like(ac), torch.empty_like(ac))
+        krs._bwd_launch_route(krs.THREAD_LOADS, ac, hc, dhc, *outs)
+        runs[krs.THREAD_LOADS] = outs
+        torch.cuda.synchronize()
     want = krs.rglru_scan_bwd_plain(a, h, dh)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.cpu().numpy().view(np.uint32),
-                                      w.numpy().view(np.uint32))
+    for got in runs.values():
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy().view(np.uint32),
+                                          w.numpy().view(np.uint32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
