@@ -115,9 +115,10 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    (ms a slab for injection and ingest, 10a); ``stream_fleet`` over
    100,000 devices against the offline ``integrate_polled`` and
    ``fleet_audit``'s naive energies at 1e-11 (10b); a
-   ``SimulatedSampler`` polling the fleet 500 times into a
-   ``CollectorPipeline`` with active ``ArtifactStore`` records for 1% of
-   the devices, bitwise a flat ``replay`` of the same bank (host ms a
+   ``SimulatedSampler`` polling a fleet of its own (20,000 devices, cut
+   from phase 3's 100,000) 500 times into a ``CollectorPipeline`` with
+   active ``ArtifactStore`` records for 1% of the devices, bitwise a
+   flat ``replay`` of the same bank (host ms a
    poll for the sampler, registry and assembler, 10c); the card's own
    nvidia-smi at ``-lms 1`` for ~3 s under an ``fma_chain`` square wave,
    replayed by ``python -m repro_torch.collect`` on the card (a
@@ -152,9 +153,10 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    relative (logged when bitwise), every rank launching ``log_filter``
    (counted per rank) and holding it against its plain version at the
    largest shape it gave it, devices/s per shard count as information
-   (12b); the reference's ``sharded.mega`` audit, 10,000,000 devices
-   naive in 100,000-device super-slabs at world size 1, above 10,000
-   devices/s with its streamed mean |error| within 1e-12 of the exact
+   (12b); the reference's ``sharded.mega`` audit, cut from 10,000,000 to
+   2,000,000 devices, naive in 100,000-device super-slabs at world size
+   1, above 10,000 devices/s with its streamed mean |error| within
+   1e-12 of the exact
    one, its peak card memory logged (12c).  A rank that fails or does
    not join in time fails the phase.  The script logs its own wall;
 13. the mixture-of-experts decoders and the serving CLI, after phase 12:
@@ -245,7 +247,25 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    TMA ring and attention's on the tensor cores (15d); a restart on the
    card at
    ``REDUCED``, 10 + checkpoint + 10 steps against 20 straight, the final
-   losses within 1e-4 (15e).  The phase logs its wall.
+   losses within 1e-4 (15e).  The phase logs its wall;
+16. the dry run, after phase 15, on the CPU over placeholder ranks
+   (``python -m repro_torch.launch.dryrun`` and its traces, each in a
+   subprocess with a process group of the ``"fake"`` backend, all
+   started together): the three tiny-mesh twins of
+   ``tests/test_dryrun_small.py`` at ``REDUCED`` (gemma2-2b ``train_4k``
+   on (2, 2): OK, an artifact with dot FLOPs, a bottleneck among the
+   three terms and the memory dict; recurrentgemma-9b ``long_500k`` OK
+   and llama3-405b's SKIP; olmo-1b ``train_4k`` on (2, 2, 2); 16a); at
+   full width on the production meshes, each with its report line and
+   wall: olmo-1b ``train_4k`` on pod16x16 (layout fsdp_only),
+   recurrentgemma-9b ``long_500k`` and granite-moe-3b-a800m
+   ``decode_32k`` on pod16x16, llama3-405b ``train_4k`` on pod2x16x16
+   (16b); one rank at 15c's cell: olmo-1b's traced dot FLOPs equal to
+   ``FlopCounterMode`` over one real step on the card (run meanwhile),
+   its traced peak bytes and roofline step beside 15c's
+   ``max_memory_allocated`` and median step, olmo-1b FITS and
+   recurrentgemma-9b at its 38 layers is OVER (16c).  The phase logs its
+   wall.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -404,6 +424,10 @@ SRC_CRASH_AT = 2
 SRC_SMALL = 1000
 SRC_POLLS = 500
 SRC_STORE_SHARE = 0.01
+#: 10c's fleet: 20,000 devices (a depth cut from phase 3's 100,000: the
+#: collector's host work, resolve_corrections above all, took 72-105 s
+#: there)
+SRC_COLLECT = 20_000
 #: the store's clock: records fitted an hour before it
 SRC_NOW = 1.7e9
 SRC_SMI_S = 3.0
@@ -445,13 +469,16 @@ MIX_ULP_RTOL = 1e-15
 #: on the one card (NCCL refuses two ranks on one GPU), AUDIT_CHUNK rows
 #: a rank a step; 12c the reference's ``sharded.mega`` audit
 #: (``benchmarks/shard_worker.py``: 10,000,000 devices, profiles
-#: a100, a100, h100_instant, v100 in turn, naive only) at world size 1
+#: a100, a100, h100_instant, v100 in turn, naive only) at world size 1,
+#: cut to 2,000,000 devices: its host work grows with the square of the
+#: devices (every super-slab redraws the whole fleet's labels), and the
+#: script's wall has a limit
 SHARD_DIR = os.path.join(ROOT, "build", "chip_shard")
 SHARD_WORLDS = (2, 4)
 SHARD_JOIN_S = 300
 SHARD_COLLECTIVE_S = 240
 SHARD_COLLECTIVE_REPS = 20
-MEGA_DEVICES = 10_000_000
+MEGA_DEVICES = 2_000_000
 MEGA_PATTERN = ("a100", "a100", "h100_instant", "v100")
 MEGA_CHUNK = 100_000
 MEGA_MIN_DEVICES_PER_S = 10_000
@@ -589,6 +616,60 @@ TRAIN_GRAD_REL_L2 = 1e-4
 #: 15e: restart against a straight run, the reference test's bar
 RESTART_REL = 1e-4
 TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "chip_train_ckpt")
+
+#: phase 16, the dry run: on the CPU over placeholder ranks, each run a
+#: subprocess (its own process group of the "fake" backend), all started
+#: together; 16a the three tiny-mesh twins of tests/test_dryrun_small.py
+#: at REDUCED, 16b four cells at full width on the production meshes,
+#: 16c one rank at 15c's cell against a real step on the card
+DRY_DIR = os.path.join(ROOT, "build", "chip_dryrun")
+DRY_TIMEOUT_S = 600
+DRY_TINY = (("gemma2-2b", "train_4k", "OK"),
+            ("recurrentgemma-9b", "long_500k", "OK"),
+            ("llama3-405b", "long_500k", "SKIP"))
+DRY_FULL = (("olmo-1b", "train_4k", "single"),
+            ("recurrentgemma-9b", "long_500k", "single"),
+            ("granite-moe-3b-a800m", "decode_32k", "single"),
+            ("llama3-405b", "train_4k", "multi"))
+#: 16a: olmo-1b's train cell at REDUCED on a (2, 2, 2) pod x data x model
+#: mesh (tests/test_dryrun_small.py::test_dryrun_multipod_tiny)
+DRY_MULTIPOD = """
+import json
+from repro_torch.configs.registry import get_config
+from repro_torch.configs.base import get_shape
+from repro_torch.launch.dryrun import report_cell
+from repro_torch.launch.mesh import fake_process_group, make_mesh
+with fake_process_group(8):
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device_type="cpu")
+    r, t = report_cell(get_config("olmo-1b", reduced=True),
+                       get_shape("train_4k"), mesh, "tiny2x2x2")
+print(json.dumps(dict(dot_flops=t["counter"].dot_flops,
+                      coll_bytes=t["counter"].collectives.total_bytes,
+                      bottleneck=r.bottleneck)))
+"""
+#: 16c: one rank at 15c's cell (4 x 2048 tokens, train, remat "full") for
+#: olmo-1b and recurrentgemma-9b at their full depth
+DRY_ONE_RANK = """
+import json, sys
+from repro_torch.configs.registry import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch.dryrun import report_cell
+from repro_torch.launch.mesh import fake_process_group, make_mesh
+seq, batch = int(sys.argv[1]), int(sys.argv[2])
+out = {}
+with fake_process_group(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    for arch in ("olmo-1b", "recurrentgemma-9b"):
+        r, t = report_cell(get_config(arch), ShapeCell("16c", seq, batch,
+                                                       "train"), mesh, "one")
+        out[arch] = dict(dot_flops=t["counter"].dot_flops,
+                         peak_bytes=t["counter"].peak_bytes,
+                         fits=r.fits_hbm, bottleneck=r.bottleneck,
+                         step_s=max(r.compute_s, r.memory_s, r.collective_s),
+                         compute_s=r.compute_s, memory_s=r.memory_s,
+                         trace_s=t["trace_s"])
+print(json.dumps(out))
+"""
 
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
                 ("rtx3090_instant", 0.100))
@@ -894,6 +975,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_records, train_extras = training(dev)
     results.extend(train_records)
+    torch.cuda.empty_cache()
+    dry_run(dev, train_records[1]["training_15c"])
     later += list(train_extras.items())
     for name, extra in later:
         rec = by_name[name]
@@ -1864,23 +1947,27 @@ def sources(dev, names, shifts, bank):
     del res, audit
     torch.cuda.empty_cache()
 
-    # -- 10c. the collector at full width ---------------------------------------
-    sampler = SimulatedSampler(bank, t0=0.0, period_s=PERIOD_S)
+    # -- 10c. the collector, on a fleet of its own ---------------------------
+    # (SRC_COLLECT devices: the registry's and resolve_corrections' host
+    # work grows with the uuids, and the script's wall has a limit)
+    n_c = SRC_COLLECT
+    names_c, _, _, bank_c = fleet(dev, n_c)
+    sampler = SimulatedSampler(bank_c, t0=0.0, period_s=PERIOD_S)
     store = ArtifactStore(os.path.join(SRC_DIR, "store"))
     gen = np.random.default_rng(SEED + 13)
-    with_rec = np.sort(gen.choice(n, int(n * SRC_STORE_SHARE),
+    with_rec = np.sort(gen.choice(n_c, int(n_c * SRC_STORE_SHARE),
                                   replace=False))
     # what resolve_corrections must give: the record's correction where
     # one is active, identity ("uncalibrated") elsewhere
-    want = {"gain": np.ones(n), "offset_w": np.zeros(n),
-            "time_shift_s": np.zeros(n), "baseline_w": np.zeros(n),
-            "ref_period_s": np.full(n, 0.1),
-            "calibrated": np.zeros(n, dtype=bool)}
-    labels = np.full(n, "uncalibrated", dtype=object)
+    want = {"gain": np.ones(n_c), "offset_w": np.zeros(n_c),
+            "time_shift_s": np.zeros(n_c), "baseline_w": np.zeros(n_c),
+            "ref_period_s": np.full(n_c, 0.1),
+            "calibrated": np.zeros(n_c, dtype=bool)}
+    labels = np.full(n_c, "uncalibrated", dtype=object)
     t0 = time.perf_counter()
     for i in with_rec:
         rec = dataclasses.replace(
-            nominal_record(str(sampler.uuids[i]), profiles.get(names[i])),
+            nominal_record(str(sampler.uuids[i]), profiles.get(names_c[i])),
             gain=float(1.0 + gen.uniform(-0.05, 0.05)),
             offset_w=float(gen.uniform(-5.0, 5.0)),
             fitted_at=SRC_NOW - 3600.0)
@@ -1896,7 +1983,7 @@ def sources(dev, names, shifts, bank):
     corr = StreamCorrections(**{k: torch.as_tensor(v, device=dev)
                                 for k, v in want.items()})
     pipe = CollectorPipeline(store=store, device=dev,
-                             slab_samples=SRC_POLLS * n, now=SRC_NOW)
+                             slab_samples=SRC_POLLS * n_c, now=SRC_NOW)
     reg_ms, feed_ms, sample_ms, resolve_ms = [], [], [], []
     timed_method(pipe.registry, "resolve", reg_ms)
     timed_method(pipe, "_resolve", resolve_ms)
@@ -1914,7 +2001,7 @@ def sources(dev, names, shifts, bank):
     collect_s = time.perf_counter() - t_c
     launches_10c = stream_ingest.launches
     check(launches_10c > 0, "10c: the collector ran no stream_ingest")
-    check(pipe.assembler.n_slabs == 1 and mon_c.n_devices == n
+    check(pipe.assembler.n_slabs == 1 and mon_c.n_devices == n_c
           and pipe.n_active_records == with_rec.size,
           f"10c: {pipe.summary()}")
     for f in dataclasses.fields(corr):
@@ -1923,23 +2010,23 @@ def sources(dev, names, shifts, bank):
               f"10c: the pipeline's resolved {f.name} differ from the "
               f"store's records")
     check(np.array_equal(mon_c.labels, labels), "10c: resolved labels")
-    ref_c = MonitorService(n, corrections=corr, labels=labels,
+    ref_c = MonitorService(n_c, corrections=corr, labels=labels,
                            strict_ids=False, device=dev)
-    replay(bank, ref_c, 0.0, SRC_POLLS * PERIOD_S, PERIOD_S, TICK_S,
-           chunk_devices=n, grid=False)
+    replay(bank_c, ref_c, 0.0, SRC_POLLS * PERIOD_S, PERIOD_S, TICK_S,
+           chunk_devices=n_c, grid=False)
     check(mon_c.counters == ref_c.counters,
           f"10c: counters {mon_c.counters} vs replay {ref_c.counters}")
     arrays_equal(convert.monitor_arrays(mon_c), convert.monitor_arrays(ref_c),
                  "10c collector vs replay", skip_moments=True)
     assembler_ms = [f - r for f, r in zip(feed_ms[:-1], reg_ms[:-1])]
-    log(f"10c collector: {SRC_POLLS} polls of {n} devices in "
+    log(f"10c collector: {SRC_POLLS} polls of {n_c} devices in "
         f"{collect_s:.2f} s, {launches_10c} stream_ingest launches; host ms "
         f"a poll: sampler {ms_stats(sample_ms)}, registry "
         f"{ms_stats(reg_ms)}, assembler besides the registry "
         f"{ms_stats(assembler_ms)}; the last poll (slab of "
-        f"{SRC_POLLS * n} samples: the monitor built, its corrections "
+        f"{SRC_POLLS * n_c} samples: the monitor built, its corrections "
         f"resolved, the slab ingested) {feed_ms[-1]:.1f} ms, of which "
-        f"resolve_corrections over {n} uuids {resolve_ms[0]:.1f} ms; "
+        f"resolve_corrections over {n_c} uuids {resolve_ms[0]:.1f} ms; "
         f"{with_rec.size} store records saved in {save_s:.2f} s; the "
         f"corrections are the records', and the monitor bitwise a flat "
         f"replay of the same bank (the label moments aside)")
@@ -5952,6 +6039,145 @@ def training(dev):
         "flash_attention"], launches_15d=rg["launches"]["flash_attention"]),
         "rglru_scan": dict(launches_15d=rg["launches"]["rglru_scan"])}
     return records, extras
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the dry run
+# ---------------------------------------------------------------------------
+def dry_process(label, argv, timeout=DRY_TIMEOUT_S):
+    """``python *argv`` from the checkout's root with ``src`` on the path;
+    returns (label, return code, stdout, stderr, wall s).  A process
+    past ``timeout`` is killed and fails its check."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, *argv], capture_output=True,
+                              text=True, env=env, timeout=timeout, cwd=ROOT)
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, out, err = -9, str(e.stdout or ""), f"timed out after {timeout} s"
+    return label, rc, out, err, time.perf_counter() - t0
+
+
+def dry_lines(out, tag):
+    return [ln for ln in out.splitlines() if ln.startswith(tag)]
+
+
+def dry_real_step(dev):
+    """16c: one real train step of olmo-1b at 15c's cell on the card under
+    ``FlopCounterMode``; returns its FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    params = api.init_params(SEED, cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 161)
+    batch = api.concrete_inputs(gen, cfg, ShapeCell(
+        "16c", TRAIN_SEQ, TRAIN_BATCH, "train"), dev)
+    step = make_train_step(cfg, TrainConfig(remat=True,
+                                            remat_policy="full"))
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, adamw.init(params), batch)
+        torch.cuda.synchronize()
+    check(math.isfinite(float(out[2]["loss"])), "16c: the real step's loss "
+          "is not finite")
+    del params, batch, out
+    torch.cuda.empty_cache()
+    return fc.get_total_flops()
+
+
+def dry_run(dev, train_15c):
+    """Phase 16: ``python -m repro_torch.launch.dryrun`` and its traces in
+    subprocesses on the CPU (16a, 16b, 16c's trace), all started together,
+    while 16c's real step runs on the card; each figure is logged."""
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    cli = ["-m", "repro_torch.launch.dryrun"]
+    jobs = [(f"16a {a} {s}", cli + ["--mesh", "tiny", "--reduced", "--arch",
+                                    a, "--shape", s, "--out",
+                                    os.path.join(DRY_DIR, "16a")])
+            for a, s, _ in DRY_TINY]
+    jobs.append(("16a olmo-1b train_4k (2, 2, 2)", ["-c", DRY_MULTIPOD]))
+    jobs += [(f"16b {a} {s} {m}", cli + ["--mesh", m, "--arch", a,
+                                         "--shape", s, "--out",
+                                         os.path.join(DRY_DIR, "16b")])
+             for a, s, m in DRY_FULL]
+    jobs.append(("16c one rank", ["-c", DRY_ONE_RANK, str(TRAIN_SEQ),
+                                  str(TRAIN_BATCH)]))
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = [pool.submit(dry_process, label, argv)
+                   for label, argv in jobs]
+        real = dry_real_step(dev)
+        done = {f.result()[0]: f.result()[1:] for f in futures}
+    for label, (rc, out, err, wall) in done.items():
+        check(rc == 0, f"{label}: exited {rc}: {err[-3000:]}")
+    # 16a: the twins of tests/test_dryrun_small.py
+    for a, s, want in DRY_TINY:
+        rc, out, err, wall = done[f"16a {a} {s}"]
+        line = dry_lines(out, want)
+        check(len(line) == 1, f"16a {a} {s}: no {want} line in {out!r}")
+        log(f"16a dryrun --mesh tiny --reduced --arch {a} --shape {s}: "
+            f"{line[0]} (the process {wall:.1f} s)")
+    art_dir = os.path.join(DRY_DIR, "16a")
+    arts = sorted(os.listdir(art_dir))
+    check(arts == ["gemma2-2b__train_4k__tiny2x2.json",
+                   "recurrentgemma-9b__long_500k__tiny2x2.json"],
+          f"16a: artifacts {arts}")
+    art = json.load(open(os.path.join(art_dir, arts[0])))
+    rl = art["roofline"]
+    check(art["status"] == "ok" and rl["dot_flops_per_device"] > 0
+          and rl["bottleneck"] in ("compute", "memory", "collective")
+          and "temp_size_in_bytes" in art["memory_analysis"],
+          f"16a: gemma2-2b's artifact {art}")
+    rc, out, err, wall = done["16a olmo-1b train_4k (2, 2, 2)"]
+    mp = json.loads(out.strip().splitlines()[-1])
+    check(mp["dot_flops"] > 0 and mp["coll_bytes"] > 0,
+          f"16a: the (2, 2, 2) mesh's trace {mp}")
+    log(f"16a olmo-1b train_4k at REDUCED on a (2, 2, 2) pod x data x model "
+        f"mesh: {mp['dot_flops']:,} dot FLOPs a rank, {mp['coll_bytes']:,} "
+        f"collective bytes, {mp['bottleneck']}-bound (the process "
+        f"{wall:.1f} s)")
+    # 16b: full width on the production meshes
+    for a, s, m in DRY_FULL:
+        rc, out, err, wall = done[f"16b {a} {s} {m}"]
+        line = dry_lines(out, "OK")
+        check(len(line) == 1, f"16b {a} {s} {m}: no OK line in {out!r}")
+        mesh = "pod16x16" if m == "single" else "pod2x16x16"
+        art = json.load(open(os.path.join(DRY_DIR, "16b",
+                                          f"{a}__{s}__{mesh}.json")))
+        if a == "olmo-1b":
+            check(art["layout"] == "fsdp_only",
+                  f"16b olmo-1b: layout {art['layout']}")
+        log(f"16b dryrun --mesh {m} --arch {a} --shape {s}: {line[0]} "
+            f"(layout {art['layout']}, the process {wall:.1f} s)")
+    # 16c: one rank at 15c's cell against the card
+    rc, out, err, wall = done["16c one rank"]
+    one = json.loads(out.strip().splitlines()[-1])
+    olmo, rg = one["olmo-1b"], one["recurrentgemma-9b"]
+    check(olmo["dot_flops"] == real, f"16c: the dry run counts "
+          f"{olmo['dot_flops']:,} dot FLOPs, FlopCounterMode over a real "
+          f"step on the card {real:,}")
+    check(olmo["fits"] and not rg["fits"], f"16c: olmo-1b fits "
+          f"{olmo['fits']}, recurrentgemma-9b (38 layers) fits {rg['fits']}")
+    log(f"16c olmo-1b train {TRAIN_BATCH} x {TRAIN_SEQ} (remat full), one "
+        f"rank: dot FLOPs {olmo['dot_flops']:,}, FlopCounterMode over a "
+        f"real step on the card {real:,} (equal); peak "
+        f"{olmo['peak_bytes'] / 1e9:.2f} GB a rank traced, "
+        f"{train_15c['peak_bytes'] / 1e9:.2f} GB "
+        f"max_memory_allocated in 15c; roofline step "
+        f"{olmo['step_s'] * 1e3:.1f} ms ({olmo['bottleneck']}-bound: "
+        f"compute {olmo['compute_s'] * 1e3:.1f} ms, memory "
+        f"{olmo['memory_s'] * 1e3:.1f} ms), 15c's median step "
+        f"{train_15c['step_ms']:.1f} ms; FITS. recurrentgemma-9b at 38 "
+        f"layers on one rank: peak {rg['peak_bytes'] / 1e9:.2f} GB, OVER "
+        f"(traces {olmo['trace_s']:.1f} s and {rg['trace_s']:.1f} s, the "
+        f"process {wall:.1f} s)")
+    log(f"16: phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

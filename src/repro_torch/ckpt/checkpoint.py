@@ -170,7 +170,7 @@ class CheckpointManager:
         from step ``step``: returns (``{tree: tree of tensors}``, the
         step's extras).  A spec leaf is a tensor (its shape, type and
         device) or has ``shape`` and ``dtype`` (a
-        :class:`~repro_torch.models.transformer.TensorSpec`; placed on
+        :class:`~repro_torch.common.spec.TensorSpec`; placed on
         ``device``, default the CPU).  Leaves are matched by the
         reference's dotted paths; a stored shape other than the spec's
         raises ``ValueError``."""

@@ -1,7 +1,8 @@
 """ArchConfig — the model-config schema (a copy of
 :mod:`repro.configs.base`'s, every field kept so that a reference config's
 ``to_dict`` round-trips) — and the assigned input-shape cells,
-:class:`ShapeCell`, :data:`SHAPES` and :func:`get_shape`."""
+:class:`ShapeCell`, :data:`SHAPES`, :func:`get_shape` and
+:func:`cell_applicable`."""
 from __future__ import annotations
 
 import dataclasses
@@ -76,6 +77,19 @@ class ArchConfig(Config):
         p = self.expert_pad_to
         return ((self.n_experts + p - 1) // p) * p
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the 500k-token decode cell?  True when no
+        block needs unbounded full attention."""
+        kinds = set(self.block_pattern)
+        if "attn" in kinds and self.sliding_window == 0:
+            return False
+        if "attn_global" in kinds:   # gemma2's global layers
+            return False
+        if self.encdec:              # full cross and self attention
+            return False
+        return True
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Expanded per-layer block kinds, length n_layers."""
         per = len(self.block_pattern)
@@ -113,3 +127,11 @@ def get_shape(name: str) -> ShapeCell:
         if s.name == name:
             return s
     raise KeyError(name)
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeCell) -> Tuple[bool, str]:
+    """Whether an (arch × shape) cell runs; the reason where it does not."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 500k decode is quadratic "
+                       "(skip per brief)")
+    return True, ""

@@ -32,6 +32,15 @@ def check(name: str, device: torch.device,
     return out
 
 
+def check_device(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is on the CPU or a card: a wrapper's
+    op would give another device (``meta``) its shapes, not a result."""
+    for x in tensors:
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name} runs on cpu or cuda tensors, got "
+                             f"{x.device}")
+
+
 def launch(name: str, device: torch.device,
            tensors: Sequence[Optional[torch.Tensor]], *scalars,
            entry: Optional[str] = None) -> None:

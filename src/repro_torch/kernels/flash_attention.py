@@ -43,6 +43,16 @@ FMAs) for the rest; each kernel counts its ``launches`` and
 trains through ``jax.grad`` of ``blocked_attention``), so these replace
 no TPU kernel.  With grad off, :func:`flash_attention` is the forward
 alone, its launches and routes as they were.
+
+The forward and the backward are each one custom op,
+``repro_torch::flash_attention`` and ``repro_torch::flash_attention_bwd``
+(the Function's forward and backward call them), so that a trace sees
+one op a call whatever the device: the route is chosen inside the op.
+Each op has a fake kernel (its outputs' shapes), a FLOP formula (the
+products of the plain versions at the same shapes:
+:func:`forward_flops`, :func:`backward_flops`) and a DTensor sharding
+strategy (batch, or heads where both head counts divide the mesh axis or
+under MQA, else replicated inputs).
 """
 from __future__ import annotations
 
@@ -50,6 +60,9 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _launch
 from repro_torch.models.layers import blocked_attention
@@ -90,12 +103,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     """q [B,S,Hq,D]; k/v [B,T,Hkv,D]; Hq = G·Hkv.  Returns [B,S,Hq,D] in
     q's type: :func:`blocked_attention` on CPU tensors, the kernel of
-    :func:`route` on CUDA tensors.  Under grad mode, with q, k or v
-    requiring grad, through :class:`_FlashAttention`, whose backward is
-    :func:`flash_attention_bwd`."""
+    :func:`route` on CUDA tensors (the op ``repro_torch::flash_attention``).
+    Under grad mode, with q, k or v requiring grad, through
+    :class:`_FlashAttention`, whose backward is :func:`flash_attention_bwd`
+    (the op ``repro_torch::flash_attention_bwd``)."""
+    _launch.check_device("flash_attention", q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, softcap)
-    return _forward(q, k, v, causal=causal, window=window, softcap=softcap)
+    return _fwd_op(q, k, v, causal, window, softcap)
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -161,16 +176,15 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        out = _forward(q, k, v, causal=causal, window=window,
-                       softcap=softcap)
+        out = _fwd_op(q, k, v, causal, window, softcap)
         ctx.save_for_backward(q, k, v, out)
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.opts = (causal, window, softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, **ctx.opts)
+        dq, dk, dv = _bwd_op(q, k, v, out, dout, *ctx.opts)
         return dq, dk, dv, None, None, None
 
 
@@ -332,6 +346,105 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, lse, delta = flash_attention_bwd_dq(qc, kc, vc, oc, gc, **kw)
     dk, dv = flash_attention_bwd_dkdv(qc, kc, vc, gc, lse, delta, **kw)
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The two custom ops: one op a traced call, whatever the device
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, softcap: float) -> torch.Tensor:
+    """The forward as one op: :func:`_forward` (its route chosen by the
+    tensors' device)."""
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, window, softcap):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, dout: torch.Tensor, causal: bool, window: int,
+            softcap: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as one op: :func:`flash_attention_bwd`."""
+    return flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                               window=window, softcap=softcap)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, dout, causal, window, softcap):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def forward_flops(q_shape, k_shape, block_q: int = 512,
+                  block_k: int = 1024) -> int:
+    """The products :func:`blocked_attention` computes at these shapes:
+    QKᵀ and PV over every (query block, key block) pair, both axes padded
+    to their blocks, masked blocks included: 4 · B · Hq · S_pad · T_pad ·
+    D."""
+    B, S, Hq, D = q_shape
+    T = k_shape[1]
+    bq, bk = min(block_q, max(S, 1)), min(block_k, max(T, 1))
+    return 4 * B * Hq * (-(-S // bq) * bq) * (-(-T // bk) * bk) * D
+
+
+def backward_flops(q_shape, k_shape) -> int:
+    """The products :func:`flash_attention_bwd_plain` computes at these
+    shapes: QKᵀ again, dO Vᵀ, dS K, dSᵀ Q and Pᵀ dO, each 2 · B · Hq · S
+    · T · D."""
+    B, S, Hq, D = q_shape
+    return 10 * B * Hq * S * k_shape[1] * D
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, softcap, *args,
+      **kwargs) -> int:
+    return forward_flops(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, *args, **kwargs) -> int:
+    return backward_flops(q_shape, k_shape)
+
+
+def _head_shards(q, k) -> bool:
+    """Whether both head counts divide every mesh dim's size."""
+    return all(q.shape[2] % n == 0 and k.shape[2] % n == 0
+               for n in q.mesh.shape)
+
+
+def _mqa(q, k) -> bool:
+    """One KV head and query heads that divide every mesh dim's size."""
+    return k.shape[2] == 1 and all(q.shape[2] % n == 0 for n in q.mesh.shape)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _(q, k, v, causal, window, softcap):
+    """Batch shards; heads shard where both head counts divide the axis,
+    or under MQA with k/v replicated; else replicated inputs."""
+    R, rest = Replicate(), [None] * 3
+    out = [([R], [R, R, R] + rest), ([Shard(0)], [Shard(0)] * 3 + rest)]
+    if _head_shards(q, k):
+        out.append(([Shard(2)], [Shard(2)] * 3 + rest))
+    elif _mqa(q, k):
+        out.append(([Shard(2)], [Shard(2), R, R] + rest))
+    return out
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+def _(q, k, v, out, dout, causal, window, softcap):
+    """As the forward's; under MQA the one KV head's gradients are
+    partial sums over the query heads' shards."""
+    R, S0, S2, rest = Replicate(), Shard(0), Shard(2), [None] * 3
+    out = [([R] * 3, [R] * 5 + rest), ([S0] * 3, [S0] * 5 + rest)]
+    if _head_shards(q, k):
+        out.append(([S2] * 3, [S2] * 5 + rest))
+    elif _mqa(q, k):
+        out.append(([S2, Partial(), Partial()], [S2, R, R, S2, S2] + rest))
+    return out
 
 
 def reset_launches() -> None:

@@ -38,6 +38,14 @@ the other route:
 
 ``rglru_scan_bwd.launches`` counts the backward's launches and
 ``rglru_scan_bwd.launches_by_route`` each route's.
+
+The forward's f32 output and the backward are each one custom op,
+``repro_torch::rglru_scan`` and ``repro_torch::rglru_scan_bwd`` (the
+Function's forward and backward call them), so that a trace sees one op
+a call whatever the device: the route is chosen inside the op.  Each op
+has a fake kernel (its outputs' shapes) and a DTensor sharding strategy
+(batch and channels shard, time never does); the recurrence has no
+products, so no FLOP formula.
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.kernels import _launch
 
@@ -124,7 +134,7 @@ class _RGLRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, u):
-        h = _scan_f32(a, u)
+        h = _scan_op(a, u)
         ctx.save_for_backward(a.float(), h)
         ctx.types = (a.dtype, u.dtype)
         return h.to(u.dtype)
@@ -132,7 +142,7 @@ class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h = ctx.saved_tensors
-        da, du = rglru_scan_bwd(a, h, dh.float())
+        da, du = _bwd_op(a, h, dh.float())
         a_type, u_type = ctx.types
         return da.to(a_type), du.to(u_type)
 
@@ -142,9 +152,10 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     tensors (a and u cast to f32 first, the result in u's type).  Under
     grad mode, with a or u requiring grad, through :class:`_RGLRUScan`,
     whose backward is :func:`rglru_scan_bwd`."""
+    _launch.check_device("rglru_scan", a, u)
     if torch.is_grad_enabled() and (a.requires_grad or u.requires_grad):
         return _RGLRUScan.apply(a, u)
-    return _scan_f32(a, u).to(u.dtype)
+    return _scan_op(a, u).to(u.dtype)
 
 
 def rglru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor,
@@ -225,6 +236,51 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
     return _bwd_launch(*_launch.check("rglru_scan_bwd", a.device, [
         ("a", a, torch.float32, shape), ("h", h, torch.float32, shape),
         ("dh", dh, torch.float32, shape)]))
+
+
+# ---------------------------------------------------------------------------
+# The two custom ops: one op a traced call, whatever the device
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _scan_op(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The forward's f32 output as one op: :func:`_scan_f32` (its route
+    chosen by the tensors' device)."""
+    return _scan_f32(a, u)
+
+
+@_scan_op.register_fake
+def _(a, u):
+    return torch.empty(a.shape, dtype=torch.float32, device=a.device)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=())
+def _bwd_op(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward as one op: :func:`rglru_scan_bwd`."""
+    return rglru_scan_bwd(a, h, dh)
+
+
+@_bwd_op.register_fake
+def _(a, h, dh):
+    f32 = dict(dtype=torch.float32, device=a.device)
+    return torch.empty(a.shape, **f32), torch.empty(a.shape, **f32)
+
+
+def _scan_shardings(n_in: int, n_out: int):
+    """Batch (dim 0) and channels (dim 2) shard; time never does."""
+    return [([p] * n_out, [p] * n_in) for p in (Replicate(), Shard(0),
+                                                Shard(2))]
+
+
+@register_sharding(torch.ops.repro_torch.rglru_scan.default)
+def _(a, u):
+    return _scan_shardings(2, 1)
+
+
+@register_sharding(torch.ops.repro_torch.rglru_scan_bwd.default)
+def _(a, h, dh):
+    return _scan_shardings(3, 2)
 
 
 def reset_launches() -> None:

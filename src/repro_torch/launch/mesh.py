@@ -1,9 +1,9 @@
-"""The ``("data",)`` mesh of the sharded fleet audit, on
-:mod:`torch.distributed`.
+"""Meshes on :mod:`torch.distributed`: the ``("data",)`` mesh of the
+sharded fleet audit, and the production meshes of the dry run.
 
-The counterpart of :mod:`repro.launch.mesh`'s ``make_mesh``,
-``data_mesh``, ``n_chips`` and ``require_devices``.  A shard is a
-process: the caller starts one per shard and joins them in a process
+The counterpart of :mod:`repro.launch.mesh`'s
+``make_production_mesh``, ``make_mesh``, ``data_mesh``, ``n_chips`` and
+``require_devices``.  A shard is a process: the caller starts one per shard and joins them in a process
 group (``torch.distributed.init_process_group`` with its address, world
 size and rank) before building a mesh.  Ranks on different cards use
 NCCL; the CPU, and ranks that share a card (NCCL refuses two on one
@@ -11,11 +11,17 @@ GPU), use gloo.  The mesh spans the whole group: unlike the reference,
 which may take the first ``n`` of the visible devices, a mesh of fewer
 shards than the world is refused.
 
+The dry run builds its production meshes over placeholder ranks:
+:func:`fake_process_group` starts a process group of the ``"fake"``
+backend in this one process (every collective returns at once and moves
+nothing), as the reference forces 512 placeholder host devices.
+
 Nothing here touches the process group when it is imported.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -59,6 +65,42 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                            "by default; pass device_type=\"cpu\" for a mesh "
                            "of CPU processes")
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod",
+    "data", "model") with ``multi_pod``, over the process group the
+    caller set up (256 or 512 ranks)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int) -> Iterator[None]:
+    """A process group of ``world_size`` placeholder ranks in this process
+    (the ``"fake"`` backend, this process rank 0), destroyed on exit.
+    Collectives on it return at once and move nothing: it gives a
+    :class:`~torch.distributed.device_mesh.DeviceMesh` its shape for a
+    trace under ``FakeTensorMode``, never a result."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "the dry run's placeholder ranks need the \"fake\" process "
+            "group backend, whose store torch ships in "
+            "torch.testing._internal.distributed.fake_pg; this torch "
+            f"build has none ({e})") from e
+    if dist.is_initialized():
+        raise RuntimeError("fake_process_group: a process group is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def data_mesh(n_shards: Optional[int] = None,

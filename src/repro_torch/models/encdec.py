@@ -28,13 +28,14 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_shard import gather_weights
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_norm, apply_rope,
-                                       decode_attention, einsum)
+                                       decode_attention, einsum, heads_out)
 from repro_torch.models.transformer import (TensorSpec, _dtype, _ffn,
                                             _mlp_specs, _project_qkv, _stack,
-                                            embed_tokens, take, unembed,
-                                            unstack)
+                                            embed_tokens, gold_logits, take,
+                                            unembed, unstack)
 
 Params = Dict[str, Any]
 
@@ -89,12 +90,13 @@ def encode(params: Params, cfg: ArchConfig,
     x = src_embeds.to(params["embed"].device, _dtype(cfg))
     pos = _positions(x.shape[1], x.device)
     for p in unstack(params["enc"], cfg.n_enc_layers):
+        p = gather_weights(p)
         h = apply_norm(cfg.norm_kind, x, p["ln1"])
         q, k, v = _project_qkv(p, h)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         att = flash_attention(q, k, v, causal=False)
-        x = x + einsum("bshe,hed->bsd", att, p["wo"])
+        x = x + heads_out(att, p["wo"])
         x = _ffn(cfg, p, x)[0]
     return apply_norm(cfg.norm_kind, x, params["enc_norm"])
 
@@ -106,14 +108,14 @@ def _dec_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     att = flash_attention(q, k, v, causal=True)
-    x = x + einsum("bshe,hed->bsd", att, p["wo"])
+    x = x + heads_out(att, p["wo"])
 
     hx = apply_norm(cfg.norm_kind, x, p["ln_x"])
     qx = einsum("bsd,dhe->bshe", hx, p["x_wq"])
     kx = einsum("bsd,dhe->bshe", enc_out, p["x_wk"])
     vx = einsum("bsd,dhe->bshe", enc_out, p["x_wv"])
     attx = flash_attention(qx, kx, vx, causal=False)
-    x = x + einsum("bshe,hed->bsd", attx, p["x_wo"])
+    x = x + heads_out(attx, p["x_wo"])
     return _ffn(cfg, p, x)[0]
 
 
@@ -125,7 +127,7 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     x = embed_tokens(params, cfg, batch["tokens"])
     pos = _positions(x.shape[1], x.device)
     for p in unstack(params["dec"], cfg.n_dec_layers):
-        x = _dec_layer(cfg, p, x, enc_out, pos)
+        x = _dec_layer(cfg, gather_weights(p), x, enc_out, pos)
     return (unembed(params, cfg, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -138,7 +140,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     lb = batch["tokens"].to(logits.device).long()[:, 1:]
     lg = logits[:, :-1]
     logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, lb[..., None])[..., 0]
+    gold = gold_logits(lg, lb)
     loss = torch.mean(logz - gold)
     return loss, {"loss": loss, "aux": aux}
 
@@ -203,12 +205,12 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Params,
         sk[:, slot] = k[:, 0].to(sk.dtype)
         sv[:, slot] = v[:, 0].to(sv.dtype)
         att = decode_attention(q, sk, sv, cache_len)
-        x = x + einsum("bshe,hed->bsd", att, p["wo"])
+        x = x + heads_out(att, p["wo"])
         hx = apply_norm(cfg.norm_kind, x, p["ln_x"])
         qx = einsum("bsd,dhe->bshe", hx, p["x_wq"])
         attx = decode_attention(qx, cache["cross_k"][j], cache["cross_v"][j],
                                 src_len)
-        x = x + einsum("bshe,hed->bsd", attx, p["x_wo"])
+        x = x + heads_out(attx, p["x_wo"])
         x = _ffn(cfg, p, x)[0]
         new_k.append(sk)
         new_v.append(sv)

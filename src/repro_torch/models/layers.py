@@ -19,6 +19,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.act_shard import constrain
 
 NEG_INF = -1e30
 
@@ -29,12 +32,94 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     dt = ops[0].dtype
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
-    return torch.einsum(eq, *(o.to(dt) for o in ops))
+    return _einsum(eq, *(o.to(dt) for o in ops))
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``; on DTensors sharded on batch letters only
+    (letters of every operand and of the output), each rank's shards by
+    themselves.  ``torch.einsum`` flattens the batch letters into one
+    dimension: a strided shard where an inner one is sharded, which
+    DTensor's batched product has no strategy for (and which older
+    DTensors refuse to make).  The products are the same."""
+    if any(isinstance(o, DTensor) for o in ops):
+        out = _local_einsum(eq, ops)
+        if out is not None:
+            return out
+    return torch.einsum(eq, *ops)
+
+
+def _local_einsum(eq: str, ops) -> Optional[torch.Tensor]:
+    """:func:`_einsum`'s shard-local product, or None where it does not
+    apply (an ellipsis, no sharded letter, or a sharded letter that is
+    not a batch letter)."""
+    if "..." in eq or "->" not in eq:
+        return None
+    terms, out = eq.replace(" ", "").split("->")
+    terms = terms.split(",")
+    batch = set(out).intersection(*map(set, terms))
+    mesh = next(o.device_mesh for o in ops if isinstance(o, DTensor))
+    letters = []
+    for i in range(mesh.ndim):
+        here = {t[o.placements[i].dim] for t, o in zip(terms, ops)
+                if isinstance(o, DTensor) and isinstance(o.placements[i],
+                                                         Shard)}
+        if not here <= batch or len(here) > 1:
+            return None
+        letters.append(here.pop() if here else None)
+    if not any(letters):
+        return None
+
+    def places(term):
+        return [Shard(term.index(c)) if c else Replicate() for c in letters]
+    local = []
+    for t, o in zip(terms, ops):
+        if not isinstance(o, DTensor):
+            o = DTensor.from_local(o, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        local.append(o.redistribute(mesh, places(t)).to_local())
+    return DTensor.from_local(torch.einsum(eq, *local), mesh, places(out),
+                              run_check=False)
+
+
+def heads_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., H, e] · w [H, e, D] → [..., D] (``"...he,hed->...d"``),
+    the heads flattened into one contraction, with any shard of ``e``
+    of a DTensor gathered: an einsum over two contraction dims, or a
+    flattened (H, e) with ``e`` sharded, is a strided shard that
+    DTensor's batched product has no strategy for."""
+    return einsum("...k,kd->...d", _whole(x, x.dim() - 1).flatten(-2),
+                  _whole(w, 1).flatten(0, 1))
+
+
+def _heads_as_cache(q: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    """A DTensor q [B,1,Hq,D] with its heads gathered on every mesh dim
+    where the cache's KV heads are not sharded: splitting Hq into (Hkv,
+    G) keeps a shard only where Hkv carries it (GQA with Hkv below the
+    axis size shards the cache's sequence instead)."""
+    if not isinstance(q, DTensor):
+        return q
+    keep = {i for i, p in enumerate(cache.placements)
+            if isinstance(p, Shard) and p.dim == 2} \
+        if isinstance(cache, DTensor) else set()
+    return _whole(q, 2, keep)
+
+
+def _whole(x: torch.Tensor, dim: int, keep=frozenset()) -> torch.Tensor:
+    """A DTensor with its shards of ``dim`` gathered, but on the mesh dims
+    in ``keep``; anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    places = [Replicate() if isinstance(p, Shard) and p.dim == dim
+              and i not in keep else p for i, p in enumerate(x.placements)]
+    if places == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, places)
 
 
 def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum(..., preferred_element_type=jnp.float32)``."""
-    return torch.einsum(eq, *(o.float() for o in ops))
+    return _einsum(eq, *(o.float() for o in ops))
 
 
 # ---------------------------------------------------------------------------
@@ -138,12 +223,21 @@ def activation(g: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(act)
 
 
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on DTensors the same function as
+    ``-softplus(-x)`` (DTensor has no strategy for ``log_sigmoid``'s
+    forward op)."""
+    if isinstance(x, DTensor):
+        return -F.softplus(-x)
+    return F.logsigmoid(x)
+
+
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """SwiGLU/GeGLU block: (act(x·Wg) ⊙ x·Wu)·Wd."""
-    g = activation(einsum("bsd,df->bsf", x, w_gate), act)
-    u = einsum("bsd,df->bsf", x, w_up)
-    return einsum("bsf,fd->bsd", g * u, w_down)
+    g = activation(constrain(einsum("bsd,df->bsf", x, w_gate), "bsf"), act)
+    u = constrain(einsum("bsd,df->bsf", x, w_up), "bsf")
+    return constrain(einsum("bsf,fd->bsd", g * u, w_down), "bsd")
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +343,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, _, Hq, Dh = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
-    qr = q.reshape(B, Hkv, G, Dh)
+    qr = _heads_as_cache(q, k_cache).reshape(B, Hkv, G, Dh)
     s = einsum_f32("bhgd,bkhd->bhgk", qr, k_cache) * (Dh ** -0.5)
     s = _softcap(s, softcap)
     k_pos = torch.arange(T, dtype=torch.int32, device=q.device)

@@ -9,21 +9,24 @@ Step by step as the reference:
   top-k, the top-k weights renormalised (floor 1e-9);
 * **aux loss**: Switch-style, ``E · Σ_e density_e · mean prob_e`` over the
   top-1 expert, with ``E`` (not the padded count) columns;
-* **capacity**: ``cap = int(max(1, (k·T·capacity_factor) // Ep))`` in
+* **capacity**: ``cap = int(max(1, (k·T_g·capacity_factor) // Ep))`` in
   Python floats, rounded up to a multiple of 128 (``Ep`` is the padded
   expert count, the experts' leading dimension);
 * **slots**: an assignment's position in its expert is the number of
-  earlier assignments to that expert, in token order over the flattened
-  ``[T·k]`` assignments (an exclusive cumsum of their one-hot), so the
+  earlier assignments to that expert, in token order over the group's
+  flattened ``[T_g·k]`` assignments (an exclusive cumsum of their
+  one-hot), so the
   latest tokens are the first dropped; a dropped assignment writes a
   trash slot that is sliced away and gets zero back;
-* **experts**: batched products over ``[Ep, C, D]``, then the weighted
+* **experts**: batched products over ``[G, Ep, C, D]``, then the weighted
   gather back, plus the shared experts (:func:`gated_mlp`).
 
-The reference's grouped dispatch (one capacity slice per batch shard,
-``batch_groups()``) is 1 group without an activation-sharding context,
-and one card has no batch shards: the port is that G = 1 case.  The
-padding experts (``cfg.expert_pad_to``) receive no tokens.
+The dispatch is grouped as the reference's: one capacity slice a batch
+shard, ``G = batch_groups()`` groups of ``T / G`` tokens (1 group, the
+whole batch, without an activation-sharding context, or where G does not
+divide T), each with its own capacity and slots, so that the scatter and
+gather never cross data shards.  The padding experts
+(``cfg.expert_pad_to``) receive no tokens.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_shard import batch_groups, constrain
 from repro_torch.models.layers import activation, einsum, einsum_f32, gated_mlp
 
 #: capacity per expert is rounded up to a multiple of this.  The
@@ -98,41 +102,51 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     density = F.one_hot(topi[:, 0], E).float().mean(0)
     aux = E * torch.sum(density * probs.mean(0))
 
-    cap = capacity(T, k, capacity_factor, Ep)
+    # one capacity slice a batch shard (G groups), so that the scatter and
+    # gather never cross data shards
+    G = batch_groups()
+    if T % G:
+        G = 1
+    Tg = T // G
+    cap = capacity(Tg, k, capacity_factor, Ep)
     n_slots = Ep * cap
-    flat_e = topi.reshape(T * k)
-    onehot = F.one_hot(flat_e, Ep)                               # [Tk,Ep]
-    pos = (torch.cumsum(onehot, 0) - onehot).gather(
-        1, flat_e[:, None])[:, 0]                                # before me
+    flat_e = topi.reshape(G, Tg * k)
+    onehot = F.one_hot(flat_e, Ep)                               # [G,Tgk,Ep]
+    pos = (torch.cumsum(onehot, 1) - onehot).gather(
+        2, flat_e[..., None])[..., 0]                            # before me
     keep = pos < cap
     lin = flat_e * cap + torch.clamp_max(pos, cap - 1)
     if _records is not None:
         _records.append(Dispatch(probs, topi, keep.reshape(T, k)))
 
-    # slot -> assignment (sentinel T·k where empty); only the trash slot
+    # slot -> assignment (sentinel Tg·k where empty); only the trash slot
     # n_slots takes more than one write, so no live slot depends on which
     # of several writes wins
-    tok_ids = torch.arange(T * k, device=x.device)
-    slot_tok = torch.full((n_slots + 1,), T * k, dtype=torch.long,
+    tok_ids = torch.arange(Tg * k, device=x.device).expand(G, Tg * k)
+    slot_tok = torch.full((G, n_slots + 1), Tg * k, dtype=torch.long,
                           device=x.device)
-    slot_tok.scatter_(0, torch.where(keep, lin, n_slots), tok_ids)
-    slot_tok = slot_tok[:n_slots]
-    # the reference gathers from the [T·k, D] repeat of xt; assignment a
-    # is a row of token a // k
-    buf = xt[torch.clamp_max(slot_tok, T * k - 1) // k]
-    buf = torch.where((slot_tok < T * k)[:, None], buf,
+    slot_tok = slot_tok.scatter(1, torch.where(keep, lin, n_slots), tok_ids)
+    slot_tok = slot_tok[:, :n_slots]
+    # the reference gathers from the [Tg·k, D] repeat of each group's
+    # tokens; assignment a is a row of token a // k
+    xg = constrain(xt.reshape(G, Tg, D), "gtd")
+    rows = torch.clamp_max(slot_tok, Tg * k - 1) // k
+    buf = torch.gather(xg, 1, rows[..., None].expand(G, n_slots, D))
+    buf = torch.where((slot_tok < Tg * k)[..., None], buf,
                       torch.zeros((), dtype=buf.dtype, device=x.device))
-    buf = buf.reshape(Ep, cap, D)
+    buf = constrain(buf.reshape(G, Ep, cap, D), "gecd")
 
-    g = einsum("ecd,edf->ecf", buf, params["w_gate"])
-    u = einsum("ecd,edf->ecf", buf, params["w_up"])
-    ye = einsum("ecf,efd->ecd", activation(g, act) * u, params["w_down"])
+    g = constrain(einsum("gecd,edf->gecf", buf, params["w_gate"]), "gecf")
+    u = constrain(einsum("gecd,edf->gecf", buf, params["w_up"]), "gecf")
+    ye = constrain(einsum("gecf,efd->gecd", activation(g, act) * u,
+                          params["w_down"]), "gecd")
 
-    back = ye.reshape(n_slots, D)[lin]                           # [Tk,D]
-    back = torch.where(keep[:, None], back,
+    back = torch.gather(ye.reshape(G, n_slots, D), 1,
+                        lin[..., None].expand(G, Tg * k, D))     # [G,Tgk,D]
+    back = torch.where(keep[..., None], back,
                        torch.zeros((), dtype=back.dtype, device=x.device))
-    w = topw.reshape(T * k, 1).to(back.dtype)
-    y = (back * w).reshape(T, k, D).sum(1)
+    w = topw.reshape(G, Tg * k, 1).to(back.dtype)
+    y = (back * w).reshape(G, Tg, k, D).sum(2).reshape(T, D)
 
     if "shared_gate" in params:
         y = y + gated_mlp(x, params["shared_gate"], params["shared_up"],

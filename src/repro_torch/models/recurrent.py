@@ -210,10 +210,10 @@ def mlstm_step(q, k, v, log_f, log_i, state: MLSTMState
     decay = torch.exp(state.m + log_f - m_new)
     inw = torch.exp(log_i - m_new)
     S_new = (state.S * decay[..., None, None]
-             + torch.einsum("bhd,bhe->bhde", kf, vf) * inw[..., None, None])
+             + einsum_f32("bhd,bhe->bhde", kf, vf) * inw[..., None, None])
     n_new = state.n * decay[..., None] + kf * inw[..., None]
-    num = torch.einsum("bhd,bhde->bhe", qf, S_new) * scale
-    den = torch.einsum("bhd,bhd->bh", qf, n_new).abs() * scale
+    num = einsum_f32("bhd,bhde->bhe", qf, S_new) * scale
+    den = einsum_f32("bhd,bhd->bh", qf, n_new).abs() * scale
     y = num / torch.maximum(den, torch.exp(-m_new))[..., None]
     return y.to(q.dtype), MLSTMState(S_new, n_new, m_new)
 

@@ -44,6 +44,15 @@ to the parameters' type and not scaled; with ``cfg.mrope`` and
 ``batch["positions3"]`` its attention rotates by M-RoPE, otherwise by
 RoPE, as the reference's does.
 
+Under the dry run's activation-sharding context
+(:mod:`repro_torch.distributed.act_shard`) the residual stream, the
+projections, the MLP hidden and the logits are pinned to the reference's
+layouts (``constrain``, at the reference's places), and each period's
+FSDP-sharded weights are gathered once at the top of its body
+(``gather_weights``; recomputed with the period in the backward, where
+its gradients are reduce-scattered); without a context both return
+their arguments.
+
 Types follow the reference op by op (see :mod:`.layers`).  A float32
 product is full float32 only with TF32 off: the port leaves
 ``torch.backends.cuda.matmul.allow_tf32`` (False by default) and
@@ -54,20 +63,24 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common.spec import TensorSpec
 from repro_torch.common.tree import leaves_with_paths, map_with_paths
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_shard import (constrain, gather_weights,
+                                               lookup_table, settle)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_mrope, apply_norm, apply_rope,
                                        decode_attention, einsum, einsum_f32,
-                                       gated_mlp)
+                                       gated_mlp, heads_out, log_sigmoid)
 from repro_torch.models.moe import moe_ffn
 
 Params = Dict[str, Any]
@@ -75,12 +88,6 @@ Params = Dict[str, Any]
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
-
-
-class TensorSpec(NamedTuple):
-    """Shape and type of one parameter or cache leaf."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -323,9 +330,8 @@ def _window_for(cfg: ArchConfig, kind: str) -> int:
 
 
 def _project_qkv(p: Params, h: torch.Tensor):
-    return (einsum("bsd,dhe->bshe", h, p["wq"]),
-            einsum("bsd,dhe->bshe", h, p["wk"]),
-            einsum("bsd,dhe->bshe", h, p["wv"]))
+    return tuple(constrain(einsum("bsd,dhe->bshe", h, p[w]), "bshe")
+                 for w in ("wq", "wk", "wv"))
 
 
 def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor
@@ -367,7 +373,7 @@ def _apply_attn_block(cfg: ArchConfig, kind: str, p: Params,
     att = flash_attention(q, k, v, causal=True,
                           window=_window_for(cfg, kind),
                           softcap=cfg.attn_softcap)
-    x = x + einsum("bshe,hed->bsd", att, p["wo"])
+    x = constrain(x + heads_out(att, p["wo"]), "bsd")
     x, aux = _ffn(cfg, p, x)
     return x, aux, (k, v)
 
@@ -396,7 +402,7 @@ def _mlstm_inputs(p: Params, h: torch.Tensor):
     q, k, v = _project_qkv(p, h)
     gates = einsum("bsd,dg->bsg", h.float(), p["w_if"])
     log_i, log_f = gates.chunk(2, dim=-1)
-    return q, k, v, F.logsigmoid(log_f), log_i
+    return q, k, v, log_sigmoid(log_f), log_i
 
 
 def _apply_mlstm_block(cfg: ArchConfig, p: Params,
@@ -405,7 +411,7 @@ def _apply_mlstm_block(cfg: ArchConfig, p: Params,
     q, k, v, log_f, log_i = _mlstm_inputs(p, h)
     y = rec.mlstm_parallel(q, k, v, log_f, log_i, chunk=cfg.mlstm_chunk)
     og = torch.sigmoid(einsum("bsd,de->bse", h, p["w_og"]))
-    out = einsum("bshe,hed->bsd", y, p["w_out"])
+    out = heads_out(y, p["w_out"])
     return x + (out * og).to(x.dtype)
 
 
@@ -471,7 +477,10 @@ def embed_tokens(params: Params, cfg: ArchConfig,
     """The tokens' embedding rows × sqrt(d_model), in the parameters'
     type and on their device."""
     emb = params["embed"]
-    x = emb[tokens.to(emb.device).long()]
+    ids = tokens.to(emb.device).long()
+    # the embedding op, whose sharding strategy takes ids sharded over
+    # several mesh dims
+    x = settle(F.embedding(ids, lookup_table(emb)))
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                             device=x.device)
 
@@ -489,6 +498,7 @@ def embed_inputs(params: Params, cfg: ArchConfig,
         x = batch["embeds"].to(params["embed"].device, _dtype(cfg))
     else:
         x = embed_tokens(params, cfg, batch["tokens"])
+    x = constrain(x, "bsd")
     S = x.shape[1]
     pos = batch.get("positions")
     if pos is None:
@@ -503,12 +513,14 @@ def unembed(params: Params, cfg: ArchConfig, x: torch.Tensor
             ) -> torch.Tensor:
     x = apply_norm(cfg.norm_kind, x, params.get("final_norm"))
     if cfg.tie_embeddings:
-        logits = torch.matmul(x.float(), params["embed"].float().t())
+        logits = torch.matmul(x.float(),
+                              gather_weights(params["embed"]).float().t())
     else:
-        logits = einsum_f32("bsd,dv->bsv", x, params["lm_head"])
+        logits = einsum_f32("bsd,dv->bsv", x,
+                            gather_weights(params["lm_head"]))
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    return constrain(logits, "bsv")
 
 
 #: the matrix products whose outputs ``remat_policy="dots"`` saves
@@ -546,6 +558,7 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     n_per, n_rem = group_layout(cfg)
 
     def period_body(x, aux, period):
+        period = gather_weights(period)
         for i, kind in enumerate(cfg.block_pattern):
             x, a = apply_block(cfg, kind, period[f"p{i}_{kind}"], x, pos,
                                pos3)
@@ -561,11 +574,24 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         x, aux = body(x, aux, period)
     for i in range(n_rem):
         kind = cfg.block_pattern[i]
-        x, a = apply_block(cfg, kind, params["rem"][f"r{i}_{kind}"], x, pos,
-                           pos3)
+        x, a = apply_block(cfg, kind,
+                           gather_weights(params["rem"][f"r{i}_{kind}"]), x,
+                           pos, pos3)
         if a is not None:
             aux = aux + a
     return unembed(params, cfg, x), aux
+
+
+def gold_logits(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lg[..., labels]``: the logits [B,S,V] at the labels [B,S].  On
+    DTensors by a mask and a sum over the vocabulary: a gather's backward
+    makes its gradient with ``new_zeros`` of the whole [B,S,V], which
+    DTensor replicates on every rank."""
+    if not isinstance(lg, DTensor):
+        return torch.gather(lg, -1, labels[..., None])[..., 0]
+    hit = labels[..., None] == torch.arange(lg.shape[-1],
+                                            device=labels.device)
+    return torch.where(hit, lg, 0.0).sum(-1)
 
 
 def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -586,7 +612,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         lb = batch["tokens"].to(logits.device).long()[:, 1:]
         valid = torch.ones_like(lb, dtype=torch.bool)
     logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, lb[..., None])[..., 0]
+    gold = gold_logits(lg, lb)
     nll = (logz - gold) * valid
     loss = nll.sum() / torch.clamp_min(valid.sum(), 1)
     total = loss + aux_weight * aux
@@ -674,7 +700,7 @@ def _decode_attn(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor,
     cache_len = torch.full((x.shape[0],), min(pos + 1, L),
                            dtype=torch.int32, device=x.device)
     att = decode_attention(q, kc, vc, cache_len, softcap=cfg.attn_softcap)
-    x = x + einsum("bshe,hed->bsd", att, p["wo"])
+    x = x + heads_out(att, p["wo"])
     return _ffn(cfg, p, x)[0], {"k": kc, "v": vc}
 
 
@@ -695,7 +721,7 @@ def _decode_mlstm(cfg: ArchConfig, p: Params, c: Params, x: torch.Tensor
     y, st = rec.mlstm_step(q, k, v, log_f, log_i,
                            rec.MLSTMState(c["S"], c["n"], c["m"]))
     og = torch.sigmoid(einsum("bd,de->be", h[:, 0], p["w_og"]))
-    out = einsum("bhe,hed->bd", y, p["w_out"]) * og
+    out = heads_out(y, p["w_out"]) * og
     return (x + out[:, None, :].to(x.dtype),
             {"S": st.S, "n": st.n, "m": st.m})
 

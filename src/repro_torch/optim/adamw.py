@@ -1,6 +1,5 @@
 """AdamW with f32 moments, global-norm clipping and a cosine schedule (a
-port of :mod:`repro.optim.adamw`, all but ``state_specs``, which waits
-for the dry run).
+port of :mod:`repro.optim.adamw`).
 
 Functional, as the reference: :func:`update` returns new parameters and
 a new state and leaves its arguments as they were, so the caller holds
@@ -19,7 +18,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.common.config import Config
-from repro_torch.common.tree import tree_field, tree_leaves, tree_map
+from repro_torch.common.spec import TensorSpec
+from repro_torch.common.tree import (map_with_paths, tree_field, tree_leaves,
+                                     tree_map)
 
 F32 = torch.float32
 
@@ -52,6 +53,17 @@ def init(params: Any) -> AdamWState:
     return AdamWState(
         count=torch.zeros((), dtype=torch.int32, device=_device_of(params)),
         mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+
+def state_specs(param_specs: Any) -> AdamWState:
+    """The state's shapes and types for a tree of parameter specs
+    (:class:`~repro_torch.common.spec.TensorSpec`, nested dicts; nothing
+    allocated): an int32 scalar count and f32 moments."""
+    def moments():
+        return map_with_paths(lambda _, s: TensorSpec(tuple(s.shape), F32),
+                              param_specs, lambda x: not isinstance(x, dict))
+    return AdamWState(count=TensorSpec((), torch.int32), mu=moments(),
+                      nu=moments())
 
 
 def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
