@@ -264,8 +264,22 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    ``FlopCounterMode`` over one real step on the card (run meanwhile),
    its traced peak bytes and roofline step beside 15c's
    ``max_memory_allocated`` and median step, olmo-1b FITS and
-   recurrentgemma-9b at its 38 layers is OVER (16c).  The phase logs its
-   wall.
+   recurrentgemma-9b at its 38 layers is OVER (16c); beside them
+   ``tools/torch_top_dots.py olmo-1b train_4k`` in a process of its own,
+   whose TOTAL must equal 16b's artifact's dot FLOPs.  The phase logs its
+   wall;
+17. the six examples of ``examples/torch/``, after phase 16, each through
+   its ``main`` in this process on the card at its own defaults (full
+   size), with fresh directories: each one's wall, launches by kernel and
+   route, and printed lines logged; each one's claims held (the
+   checkpoint demo's four bitwise checks, 10/10 requests served, the last
+   loss below the first, the good-practice error below the naive one, the
+   live monitor's stream within 1e-11 of ``integrate_polled``); the
+   numbers of ``quickstart``, ``fleet_energy_audit`` and
+   ``monitor_checkpoint_resume`` equal to their CPU runs within the bars
+   of phases 4-7 and 9b; ``stream_ingest_grid``, ``step_integrate``,
+   ``flash_attention`` and its backward kernels launched.  The phase logs
+   its wall.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Exits non-zero without a CUDA card.
@@ -631,6 +645,9 @@ DRY_FULL = (("olmo-1b", "train_4k", "single"),
             ("recurrentgemma-9b", "long_500k", "single"),
             ("granite-moe-3b-a800m", "decode_32k", "single"),
             ("llama3-405b", "train_4k", "multi"))
+#: 16b: the cell of DRY_FULL that tools/torch_top_dots.py attributes on
+#: pod16x16 (256 ranks, its default)
+DRY_TOOL_CELL = ("olmo-1b", "train_4k")
 #: 16a: olmo-1b's train cell at REDUCED on a (2, 2, 2) pod x data x model
 #: mesh (tests/test_dryrun_small.py::test_dryrun_multipod_tiny)
 DRY_MULTIPOD = """
@@ -673,6 +690,22 @@ print(json.dumps(out))
 
 CHAR_PERIODS = (("a100", 0.100), ("v100", 0.020), ("turing", 0.100),
                 ("rtx3090_instant", 0.100))
+
+#: phase 17, the six examples of examples/torch/, each through its main()
+#: in this process on the card at its own defaults (full size), with
+#: fresh directories under EXAMPLE_DIR; the three whose paths phases 3-7
+#: and 9b hold card against CPU run on the CPU too
+EXAMPLES = ("quickstart", "fleet_energy_audit", "live_fleet_monitor",
+            "monitor_checkpoint_resume", "serve_batch", "train_mini_lm")
+EXAMPLE_DIR = os.path.join(ROOT, "build", "chip_examples")
+EXAMPLES_ON_CPU = ("quickstart", "fleet_energy_audit",
+                   "monitor_checkpoint_resume")
+#: live_fleet_monitor's stream against the offline integral
+#: (tests/test_torch_faults.py's stream_fleet(..., compare=True) cases)
+EXAMPLE_PARITY_RTOL = 1e-11
+#: what the six must launch on the card between them
+EXAMPLE_KERNELS = ("stream_ingest_grid", "step_integrate", "flash_attention",
+                   "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 
 
 def check(cond, msg):
@@ -964,7 +997,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.extend(lm_serving(dev))
     torch.cuda.empty_cache()
-    by_name = {r["name"]: r for r in results}
     mix_11b, extras = mixed_fleet(dev)
     torch.cuda.empty_cache()
     later = list(extras.items()) + list(sharded(dev, mix_11b).items())
@@ -978,6 +1010,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry_run(dev, train_records[1]["training_15c"])
     later += list(train_extras.items())
+    torch.cuda.empty_cache()
+    later += list(examples(dev).items())
+    by_name = {r["name"]: r for r in results}
     for name, extra in later:
         rec = by_name[name]
         errs = [v for k, v in extra.items() if k.startswith("max_abs_err")]
@@ -5645,14 +5680,6 @@ def attention_bwd_at(dev, phase, shapes, seed):
     return out
 
 
-def reset_train_launches():
-    """Every count of the training path's kernels set to 0."""
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import rglru_scan as krs
-    kfa.reset_launches()
-    krs.reset_launches()
-
-
 def train_launches():
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import rglru_scan as krs
@@ -5691,7 +5718,7 @@ def train_reduced(dev):
         batch = SyntheticTokens(cfg, ShapeCell("b", 40, 2, "train"),
                                 seed=SEED + 107).batch_at(0)
         runs = {}
-        reset_train_launches()
+        reset_kernel_counts()
         for where in ("cpu", dev):
             runs[str(where)] = value_and_grad(
                 cfg, TrainConfig(), tree_map(lambda x: x.to(where), params),
@@ -5755,7 +5782,7 @@ def train_cli(dev):
     from repro_torch.launch import train as train_main
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_train_launches()
+    reset_kernel_counts()
     text = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(text):
@@ -5821,7 +5848,7 @@ def train_recurrent(dev):
     n = RG_STEPS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_train_launches()
+    reset_kernel_counts()
     t0 = time.perf_counter()
     res = run_training(cfg, ShapeCell("rg", RG_SEQ, RG_BATCH, "train"),
                        TrainConfig(optim=AdamWConfig(
@@ -6109,6 +6136,10 @@ def dry_run(dev, train_15c):
              for a, s, m in DRY_FULL]
     jobs.append(("16c one rank", ["-c", DRY_ONE_RANK, str(TRAIN_SEQ),
                                   str(TRAIN_BATCH)]))
+    tool_json = os.path.join(DRY_DIR, "16b_top_dots.json")
+    jobs.append(("16b top dots", [os.path.join(ROOT, "tools",
+                                               "torch_top_dots.py"),
+                                  *DRY_TOOL_CELL, "--json", tool_json]))
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         futures = [pool.submit(dry_process, label, argv)
                    for label, argv in jobs]
@@ -6155,6 +6186,24 @@ def dry_run(dev, train_15c):
                   f"16b olmo-1b: layout {art['layout']}")
         log(f"16b dryrun --mesh {m} --arch {a} --shape {s}: {line[0]} "
             f"(layout {art['layout']}, the process {wall:.1f} s)")
+    # 16b: the attribution tool at olmo-1b's train cell against its
+    # artifact (the same trace, sites on)
+    rc, out, err, wall = done["16b top dots"]
+    first = out.splitlines()[0]
+    sites = json.load(open(tool_json))
+    art = json.load(open(os.path.join(DRY_DIR, "16b", "{}__{}__pod16x16.json"
+                                      .format(*DRY_TOOL_CELL))))
+    want = art["roofline"]["dot_flops_per_device"]
+    check(sites["total"] == sites["dot_flops"] == want
+          and first == f"TOTAL {want:.3e} dot flops/device",
+          f"16b tools/torch_top_dots.py: TOTAL {sites['total']:,} "
+          f"({first!r}), the artifact's dot FLOPs {want:,.0f}")
+    top = sorted(sites["sites"], key=lambda r: -r["flops"])[:3]
+    log(f"16b tools/torch_top_dots.py {' '.join(DRY_TOOL_CELL)}: {first}, "
+        f"equal to the dry run's artifact; {len(sites['sites'])} sites, the "
+        "top three " + "; ".join(
+            f"{r['site']} {r['flops'] / want:.1%} x{r['count']}"
+            for r in top) + f" (the process {wall:.1f} s)")
     # 16c: one rank at 15c's cell against the card
     rc, out, err, wall = done["16c one rank"]
     one = json.loads(out.strip().splitlines()[-1])
@@ -6178,6 +6227,194 @@ def dry_run(dev, train_15c):
         f"(traces {olmo['trace_s']:.1f} s and {rg['trace_s']:.1f} s, the "
         f"process {wall:.1f} s)")
     log(f"16: phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the examples
+# ---------------------------------------------------------------------------
+def _kernel_fns():
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import fma_chain as kfc
+    from repro_torch.kernels import log_filter as klf
+    from repro_torch.kernels import rglru_scan as krs
+    from repro_torch.kernels import step_integrate as ksi
+    from repro_torch.kernels import stream_ingest as ksf
+    from repro_torch.kernels import stream_ingest_grid as ksg
+    return ((ksf.stream_ingest, ksg.stream_ingest_grid, ksi.step_integrate,
+             kfc.fma_chain, krs.rglru_scan),
+            (klf.log_filter, krs.rglru_scan_bwd, kfa.flash_attention,
+             kfa.flash_attention_bwd_dq, kfa.flash_attention_bwd_dkdv),
+            (klf, krs, kfa))
+
+
+def reset_kernel_counts():
+    """Every kernel's count, and every route's, set to 0."""
+    single, _, modules = _kernel_fns()
+    for fn in single:
+        fn.launches = 0
+    for mod in modules:
+        mod.reset_launches()
+
+
+def kernel_counts():
+    """{kernel: (launches, {route: launches})}: a kernel of one source
+    has the route "cuda"."""
+    single, routed, _ = _kernel_fns()
+    out = {fn.__name__: (fn.launches, {"cuda": fn.launches})
+           for fn in single}
+    out.update({fn.__name__: (fn.launches, dict(fn.launches_by_route))
+                for fn in routed})
+    return out
+
+
+def example_module(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", "torch",
+                                        f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_run(fn, *args, **kwargs):
+    """(what ``fn`` returns, the lines it printed, wall s)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def example_dir(*parts):
+    path = os.path.join(EXAMPLE_DIR, *parts)
+    os.makedirs(path)
+    return path
+
+
+def example_close(what, got, want, rtol, atol=0.0):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape and bool(np.all(
+        np.abs(got - want) <= rtol * np.abs(want) + atol)),
+          f"17 {what}: card {got!r} vs CPU {want!r} (rtol {rtol}, atol "
+          f"{atol})")
+
+
+def example_gates(name, out, cpu):
+    """Phase 17's claims of one example, and its numbers card vs CPU
+    where ``cpu`` holds its CPU run: the bars of the path it drives."""
+    if name == "quickstart":
+        # 7d: the characterisation 1e-9; 6b: the scalar protocols 1e-12,
+        # §5 through the card's calibration (its window 1e-9)
+        for key in ("update_period_s", "window_s", "sampled_fraction",
+                    "gain", "offset_w", "good_practice_j", "std_j"):
+            example_close(f"quickstart {key}", out[key], cpu[key], 1e-9)
+        for key in ("truth_j", "naive_j"):
+            example_close(f"quickstart {key}", out[key], cpu[key], 1e-12)
+        check(abs(out["good_practice_err"]) < abs(out["naive_err"]),
+              f"17 quickstart: good practice {out['good_practice_err']:+.3%}"
+              f" not closer than naive {out['naive_err']:+.3%}")
+    elif name == "fleet_energy_audit":
+        # 5b: energies 1e-12 relative plus 1e-9 J, errors 1e-12
+        for key in ("truth_j", "naive_j", "good_practice_j",
+                    "sigma_independent_j", "sigma_worstcase_j"):
+            example_close(f"fleet {key}", out[key], cpu[key], 1e-12, 1e-9)
+        check(sorted(out["scenarios"]) == sorted(cpu["scenarios"]),
+              "17 fleet: scenarios card vs CPU")
+        for label, row in out["scenarios"].items():
+            want = cpu["scenarios"][label]
+            check(row["n_devices"] == want["n_devices"],
+                  f"17 fleet {label}: device counts card vs CPU")
+            example_close(f"fleet {label} total", row["total_j"],
+                          want["total_j"], 1e-12, 1e-9)
+            for key in ("naive_mean_abs_err", "gp_mean_abs_err"):
+                example_close(f"fleet {label} {key}", row[key], want[key],
+                              0.0, 1e-12)
+        check(abs(out["good_practice_err"]) < abs(out["naive_err"]),
+              f"17 fleet: good practice {out['good_practice_err']:+.3%} not"
+              f" closer than naive {out['naive_err']:+.3%}")
+    elif name == "live_fleet_monitor":
+        check(out["parity_naive"] <= EXAMPLE_PARITY_RTOL
+              and out["parity_corrected"] <= EXAMPLE_PARITY_RTOL,
+              f"17 live monitor: the stream against integrate_polled "
+              f"{out['parity_naive']:.3e} / {out['parity_corrected']:.3e}")
+    elif name == "monitor_checkpoint_resume":
+        check(all(out["bitwise_equal"].values()),
+              f"17 checkpoint: {out['bitwise_equal']}")
+        # 4, 9b: counters bitwise, energies 1e-12
+        for key in ("n_slabs", "n_samples", "n_answered", "epoch",
+                    "counters", "cache_hit_rate"):
+            check(out[key] == cpu[key], f"17 checkpoint {key}: card "
+                  f"{out[key]} vs CPU {cpu[key]}")
+        example_close("checkpoint per-device energies", out["per_device_j"],
+                      cpu["per_device_j"], 1e-12)
+        example_close("checkpoint final", out["final_j"], cpu["final_j"],
+                      1e-12)
+    elif name == "serve_batch":
+        check(len(out) == 10 and all(r.done for r in out),
+              f"17 serve: {len(out)}/10 requests done")
+    elif name == "train_mini_lm":
+        losses = out["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"17 train: losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+
+def examples(dev):
+    """Phase 17: each of examples/torch/ through its ``main`` on the card
+    (``--device cuda:N``) at its defaults, its wall, launches by kernel and
+    route, and printed lines logged; the examples' own claims, the three
+    card vs CPU, and the slice's kernels launched; returns each kernel
+    record's ``launches_17``."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLE_DIR, ignore_errors=True)
+    card = str(dev)
+    total = collections.Counter()
+    for name in EXAMPLES:
+        mod = example_module(name)
+        argv = ["--device", card]
+        if name == "quickstart":
+            argv += ["--store", example_dir(name, "card")]
+        elif name == "monitor_checkpoint_resume":
+            argv += ["--ckpt-dir", example_dir(name, "card")]
+        elif name == "train_mini_lm":
+            argv += ["--ckpt-dir", example_dir(name, "card")]
+        torch.cuda.empty_cache()
+        reset_kernel_counts()
+        out, lines, wall = example_run(mod.main, argv)
+        counts = {k: v for k, v in kernel_counts().items() if v[0]}
+        for kernel, (n, _) in counts.items():
+            total[kernel] += n
+        log(f"17 {name}: {wall:.1f} s on the card, launches "
+            + (", ".join(f"{k} {n} (" + ", ".join(
+                f"{r} {m}" for r, m in routes.items() if m) + ")"
+                for k, (n, routes) in counts.items()) or "none"))
+        for line in lines:
+            log(f"17 {name} | {line}")
+        cpu = None
+        if name in EXAMPLES_ON_CPU:
+            if name == "quickstart":
+                cpu, _, cpu_s = example_run(
+                    mod.run, example_dir(name, "cpu"), "cpu")
+            elif name == "fleet_energy_audit":
+                cpu, _, cpu_s = example_run(mod.run, 4096, "cpu")
+            else:
+                cpu, _, cpu_s = example_run(mod.run, 2_000, "cpu",
+                                            example_dir(name, "cpu"))
+            log(f"17 {name}: the CPU run {cpu_s:.1f} s")
+        example_gates(name, out, cpu)
+    for kernel in EXAMPLE_KERNELS:
+        check(total[kernel] > 0, f"17: the six examples launched no "
+              f"{kernel} on the card ({dict(total)})")
+    log("17: the six examples launched " + ", ".join(
+        f"{k} {n}" for k, n in sorted(total.items())) + "; every claim "
+        f"held; phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(EXAMPLE_DIR, ignore_errors=True)
+    return {k: dict(launches_17=n) for k, n in total.items()}
 
 
 if __name__ == "__main__":

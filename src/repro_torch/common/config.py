@@ -54,3 +54,8 @@ class Config:
     @classmethod
     def from_json(cls: Type[T], s: str) -> T:
         return cls.from_dict(json.loads(s))
+
+
+def validate_positive(name: str, value: float) -> None:
+    if value <= 0:
+        raise ValueError(f"{name} must be positive, got {value}")

@@ -18,6 +18,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common.config import Config
 from repro_torch.engine_backend import keyed_rng
 from repro_torch.engine_backend.pytrees import TimelineArrays
 from repro_torch.engine_backend.torch_backend import (searchsorted_rows,
@@ -368,6 +369,10 @@ def _trapezoid_rows(w: torch.Tensor, ts: torch.Tensor,
     keep = (torch.arange(d.shape[1], device=ts.device)[None, :]
             < (counts - 1)[:, None])
     return torch.where(keep, terms, 0.0).sum(dim=1)
+
+
+class MeterConfig(Config):
+    pass
 
 
 @dataclasses.dataclass(frozen=True)

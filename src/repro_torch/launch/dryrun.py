@@ -107,11 +107,15 @@ def _tensors(tree: Any):
         if isinstance(x, torch.Tensor)]
 
 
-def trace_cell(cfg, shape: ShapeCell, mesh, *, layout: str = "auto"
+def trace_cell(cfg, shape: ShapeCell, mesh, *, layout: str = "auto",
+               attribute: bool = False,
+               budget_s: Optional[float] = TRACE_BUDGET_S
                ) -> Dict[str, Any]:
     """Trace one step of the cell on ``mesh`` (a mesh over placeholder
-    ranks) under ``FakeTensorMode``; returns {"counter", "trace_s",
-    "args_bytes", "out_bytes", "rules"}."""
+    ranks) under ``FakeTensorMode`` within ``budget_s`` seconds (None: no
+    limit); returns {"counter", "trace_s", "args_bytes", "out_bytes",
+    "rules"}.  ``attribute`` turns on the counter's sites
+    (:class:`~repro_torch.launch.opcount.TraceCounter`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import implicit_replication
@@ -122,7 +126,7 @@ def trace_cell(cfg, shape: ShapeCell, mesh, *, layout: str = "auto"
     tp_size = (rules.axis_sizes[rules.tp_axis]
                if rules.layout == "default" else 1)
     pspecs = api.param_specs(cfg)
-    counter = TraceCounter(TRACE_BUDGET_S)
+    counter = TraceCounter(budget_s, attribute=attribute)
     with FakeTensorMode(), implicit_replication():
         params = _place(rules, pspecs, "params", mesh)
         if shape.mode == "decode":
@@ -176,7 +180,7 @@ def trace_cell(cfg, shape: ShapeCell, mesh, *, layout: str = "auto"
         counter.track(arg_tensors)
         args_bytes = counter.live_bytes
         t0 = time.perf_counter()
-        with ctx, counter:
+        with ctx, counter, counter.attribution():
             out = step(*args)
         trace_s = time.perf_counter() - t0
         out_bytes = sum(
@@ -256,19 +260,68 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str,
     return result
 
 
+def _mesh(mesh_name: str):
+    """The mesh ``mesh_name`` over the whole (placeholder) process group."""
+    shape, axes = MESHES[mesh_name]
+    if mesh_name == "tiny2x2":
+        return make_mesh(shape, axes, device_type="cpu")
+    return make_production_mesh(multi_pod=len(shape) == 3,
+                                device_type="cpu")
+
+
 def sweep(arch_ids, shape_names, mesh_name: str, reduced: bool,
           outdir: Optional[str]) -> list:
     """Every (arch × shape) cell on one mesh, over its own group of
     placeholder ranks, torn down after."""
-    shape, axes = MESHES[mesh_name]
-    with fake_process_group(math.prod(shape)):
-        if mesh_name == "tiny2x2":
-            mesh = make_mesh(shape, axes, device_type="cpu")
-        else:
-            mesh = make_production_mesh(multi_pod=len(shape) == 3,
-                                        device_type="cpu")
+    with fake_process_group(math.prod(MESHES[mesh_name][0])):
+        mesh = _mesh(mesh_name)
         return [run_cell(a, s, mesh, mesh_name, reduced, outdir)
                 for a in arch_ids for s in shape_names]
+
+
+#: ``--mesh`` of one cell -> mesh name
+CELL_MESHES = {"single": "pod16x16", "multi": "pod2x16x16",
+               "tiny": "tiny2x2"}
+
+
+def attributed_cell(argv=None, description: Optional[str] = None
+                    ) -> Dict[str, Any]:
+    """The command line of the attribution tools
+    (``tools/torch_top_dots.py``, ``tools/torch_attribute_collectives.py``):
+    ``arch shape [--mesh single|multi|tiny] [--reduced] [--json PATH]``,
+    the rank count from ``REPRO_DRYRUN_DEVICES`` as the reference's tools
+    read it (it picks the mesh of that many ranks where ``--mesh`` is not
+    given, and must be that mesh's where it is; without either, 256 ranks
+    of ``pod16x16``).  Traces the cell with the counter's sites on and no
+    time budget (the sites' tracebacks take 2-3 times as long);
+    returns the parsed arguments under "args" and :func:`trace_cell`'s
+    dict."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("arch")
+    ap.add_argument("shape")
+    ap.add_argument("--mesh", choices=sorted(CELL_MESHES), default=None)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--json", default=None,
+                    help="also write the exact totals and every site here")
+    args = ap.parse_args(argv)
+    env = os.environ.get("REPRO_DRYRUN_DEVICES")
+    by_ranks = {math.prod(MESHES[m][0]): k for k, m in CELL_MESHES.items()}
+    mesh = args.mesh or (by_ranks.get(int(env)) if env else "single")
+    ranks = math.prod(MESHES[CELL_MESHES[mesh]][0]) if mesh else None
+    if mesh is None or (env and int(env) != ranks):
+        ap.error(f"REPRO_DRYRUN_DEVICES={env}: the mesh spans every rank; "
+                 + ", ".join(f"--mesh {k} takes {n}"
+                             for n, k in by_ranks.items()))
+    cfg = get_config(args.arch, reduced=args.reduced)
+    shape = get_shape(args.shape)
+    ok, reason = cell_applicable(cfg, shape)
+    if not ok:
+        ap.exit(1, f"SKIP {args.arch} {args.shape}: {reason}\n")
+    with fake_process_group(ranks):
+        t = trace_cell(cfg, shape, _mesh(CELL_MESHES[mesh]), attribute=True,
+                       budget_s=None)
+    t["args"] = args
+    return t
 
 
 def main(argv=None) -> int:

@@ -71,6 +71,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device: DeviceLike = "cuda") -> Params:
     """Zeros over :func:`cache_specs` on ``device``, for either kind of
     model."""
+    if not cfg.encdec:
+        return transformer.init_cache(cfg, batch, max_seq, device)
     dev = resolve_device(device)
     return transformer.map_tree(
         lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev),

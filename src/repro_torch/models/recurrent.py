@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.layers import activation, einsum, einsum_f32
 
@@ -111,6 +112,17 @@ def rglru_block_step(x_t: torch.Tensor, state: RGLRUState, params: dict
     h = a * state.h + u
     y = einsum("be,ed->bd", h * gate, params["w_out"])
     return y, RGLRUState(h, conv)
+
+
+def rglru_init_state(batch: int, d_rec: int, conv_k: int,
+                     dtype: torch.dtype = torch.float32,
+                     device: DeviceLike = "cuda") -> RGLRUState:
+    """A zero decode state: h [batch, d_rec], the conv buffer [batch,
+    conv_k - 1, d_rec], on ``device`` (the card by default)."""
+    dev = resolve_device(device)
+    return RGLRUState(torch.zeros((batch, d_rec), dtype=dtype, device=dev),
+                      torch.zeros((batch, conv_k - 1, d_rec), dtype=dtype,
+                                  device=dev))
 
 
 

@@ -663,6 +663,16 @@ def cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> Params:
     return cache
 
 
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               device: DeviceLike = "cuda") -> Params:
+    """Zeros over :func:`cache_specs` on ``device`` (the card by
+    default)."""
+    dev = resolve_device(device)
+    return map_tree(
+        lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+        cache_specs(cfg, batch, max_seq))
+
+
 def _assemble(cfg: ArchConfig, per_layer: Dict[str, list],
               rem: Dict[str, Params], blocks_default: Params) -> Params:
     """A cache tree from per-period block caches and remainder caches."""

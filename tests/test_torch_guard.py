@@ -1,6 +1,7 @@
 """Guards on the port's boundaries.
 
-* ``repro_torch`` and ``chip_smoke.py`` import neither jax nor the JAX
+* ``repro_torch``, ``chip_smoke.py``, the examples under
+  ``examples/torch/`` and the port's tools import neither jax nor the JAX
   package ``repro``;
 * entry points run on the card unless the caller asks for the CPU, and
   never fall back to it on their own;
@@ -34,7 +35,10 @@ from repro_torch.kernels.stream_ingest_grid import (  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_profile.py"] + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + sorted(
+    (ROOT / "tools").glob("torch_*.py")) + [
+    ROOT / "tools" / "kernel_split.py", ROOT / "tools" / "rglru_bwd_sweep.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
