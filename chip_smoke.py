@@ -123,7 +123,14 @@ the checkout's ``src/``.  Phases, each of which fails the run:
    nvidia-smi at ``-lms 1`` for ~3 s under an ``fma_chain`` square wave,
    replayed by ``python -m repro_torch.collect`` on the card (a
    subprocess, and in process to count its launches) and on the CPU,
-   which must agree (10d);
+   which must agree (10d); the card's own sensor through ``NvmlSampler``
+   (NVML over ``ctypes``), found by uuid, polled on a 1 ms deadline for
+   ~3 s under the same square wave into a ``CollectorPipeline`` on the
+   card and then, the same batches, on the CPU, which must agree; at
+   least 100 finite, positive readings of at least two values; NVML's
+   reading beside nvidia-smi's power fields at idle and under a steady
+   load, the field it equals most often choosing the profile of the
+   corrections; a second ``NvmlSampler`` after ``close()`` (10e);
 11. the mixed fleet at ``benchmarks/fleet.py``'s sizes, after phase 8:
    ``FleetScenarioSpec(1_000_000, seed=7)`` synthesised on the card in
    100,000-device slabs, every row's segment count, edges and window
@@ -446,6 +453,18 @@ SRC_COLLECT = 20_000
 SRC_NOW = 1.7e9
 SRC_SMI_S = 3.0
 SRC_DIR = os.path.join(ROOT, "build", "chip_sources")
+#: 10e: NvmlSampler polled on a 1 ms deadline for SRC_SMI_S under 10d's
+#: square wave; then NVML beside nvidia-smi's power fields, read back to
+#: back LIVE_FIELD_READS times LIVE_FIELD_GAP_S apart at idle and under a
+#: steady fma_chain load (after LIVE_SETTLE_S of it: the 1 s average's
+#: window); NVML's mW equal a field's two decimals of W within
+#: LIVE_MATCH_W
+LIVE_PERIOD_S = 0.001
+LIVE_FIELDS = ("power.draw", "power.draw.average", "power.draw.instant")
+LIVE_FIELD_READS = 20
+LIVE_FIELD_GAP_S = 0.05
+LIVE_SETTLE_S = 1.5
+LIVE_MATCH_W = 0.01
 #: phase 11, the mixed fleet at benchmarks/fleet.py's sizes: its
 #: --mega-devices 1000000 audit in MEGA_CHUNK = 100,000-device slabs and
 #: its --stream-devices 100000 replay (period 0.01 s, 25,000-device
@@ -2189,10 +2208,224 @@ def sources(dev, names, shifts, bank):
         repeat_share=float(same.mean()), distinct=int(np.unique(p).size),
         raw_j=fe_card["raw_j"], corrected_j=fe_card["corrected_j"],
         duplicates=ing["duplicates"], late=ing["late"])
+    for name, extra in live_sensor(dev, x, niter_10ms, uuid).items():
+        out[name].update(extra)
     log(f"10: phase 10 took {time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(os.path.join(SRC_DIR, "supervised"), ignore_errors=True)
     shutil.rmtree(os.path.join(SRC_DIR, "store"), ignore_errors=True)
     return out
+
+
+def fma_wave(x, niter, stop, rest_s):
+    """``fma_chain(x, niter)`` bursts, each followed by ``rest_s`` asleep
+    (none: a steady load), until ``stop`` is set; returns the bursts."""
+    from repro_torch.kernels.fma_chain import fma_chain
+    n = 0
+    while not stop.is_set():
+        fma_chain(x, niter)
+        torch.cuda.synchronize()
+        n += 1
+        if rest_s:
+            time.sleep(rest_s)
+    return n
+
+
+def nvml_beside_smi(sampler, uuid, fields):
+    """NVML's reading of the card ``uuid`` just before and just after
+    nvidia-smi's ``fields`` of the same card, LIVE_FIELD_READS times;
+    returns [(before, after, {field: W})]."""
+    i = list(sampler.uuids).index(uuid)
+    rows = []
+    for _ in range(LIVE_FIELD_READS):
+        before = float(sampler.sample().power_w[i])
+        text = subprocess.run(
+            ["nvidia-smi", f"--id={uuid}", f"--query-gpu={','.join(fields)}",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.strip()
+        after = float(sampler.sample().power_w[i])
+        rows.append((before, after, dict(zip(
+            fields, (smi_reading(v) for v in text.split(","))))))
+        time.sleep(LIVE_FIELD_GAP_S)
+    return rows
+
+
+def live_sensor(dev, x, niter_10ms, uuid):
+    """10e: the card's own sensor through ``NvmlSampler`` (NVML over
+    ctypes), polled every LIVE_PERIOD_S under 10d's square wave and fed as
+    it comes into a ``CollectorPipeline`` on the card; the same batches
+    into one on the CPU; which nvidia-smi field NVML's reading is, and the
+    profile that gives the corrections.  Returns what it adds to the
+    stream_ingest and fma_chain records."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.collect import CollectorPipeline, NvmlSampler
+    from repro_torch.core import profiles
+    from repro_torch.core.calibrate import nominal_record
+    from repro_torch.kernels.fma_chain import fma_chain
+    from repro_torch.kernels.stream_ingest import stream_ingest
+
+    t_phase = time.perf_counter()
+    sampler = NvmlSampler()
+    torch_uuid = "GPU-" + str(torch.cuda.get_device_properties(dev).uuid)
+    known = set(sampler.uuids)
+    check(uuid in known and torch_uuid in known,
+          f"10e: NVML's uuids {list(sampler.uuids)} lack nvidia-smi's "
+          f"{uuid} or torch's {torch_uuid}")
+    # the monitor is built, and its corrections resolved, when the first
+    # slab lands: at finish() (the window's readings fill no 65536-sample
+    # slab), after the profile has been chosen below
+    pipe = CollectorPipeline(device=dev, rebase=True)
+    batches, poll_ms, feed_ms = [], [], []
+    missed = 0
+    stop = threading.Event()
+    fma_chain.launches = 0
+    stream_ingest.launches = 0
+    with ThreadPoolExecutor(1) as pool:
+        wave = pool.submit(fma_wave, x, niter_10ms, stop, SMI_HALF_S)
+        try:
+            t_first = time.perf_counter()
+            k = 0
+            while time.perf_counter() - t_first < SRC_SMI_S:
+                t0 = time.perf_counter()
+                batch = sampler.sample()
+                t1 = time.perf_counter()
+                pipe.feed(batch)
+                t2 = time.perf_counter()
+                batches.append(batch)
+                poll_ms.append((t1 - t0) * 1e3)
+                feed_ms.append((t2 - t1) * 1e3)
+                k += 1
+                j = int((time.perf_counter() - t_first) / LIVE_PERIOD_S)
+                if j >= k:     # behind: poll at once, skip deadlines passed
+                    missed += j - k
+                    k = j
+                time.sleep(max(0.0, t_first + k * LIVE_PERIOD_S
+                               - time.perf_counter()))
+        finally:
+            stop.set()
+        bursts = wave.result()
+    fma_wave_n = fma_chain.launches
+    check(bursts > 0 and fma_wave_n > 0, "10e: the load ran no fma_chain")
+
+    # which of nvidia-smi's fields NVML's reading is: at idle, then under
+    # a steady load
+    help_text = subprocess.run(["nvidia-smi", "--help-query-gpu"],
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout
+    fields = [f for f in LIVE_FIELDS if f'"{f}"' in help_text]
+    time.sleep(LIVE_SETTLE_S)
+    rows = {"idle": nvml_beside_smi(sampler, uuid, fields)}
+    stop = threading.Event()
+    with ThreadPoolExecutor(1) as pool:
+        steady = pool.submit(fma_wave, x, niter_10ms, stop, 0.0)
+        try:
+            time.sleep(LIVE_SETTLE_S)
+            rows["load"] = nvml_beside_smi(sampler, uuid, fields)
+        finally:
+            stop.set()
+        steady.result()
+    matches = {state: {f: sum(
+        min(abs(b - vals[f]), abs(a - vals[f])) <= LIVE_MATCH_W
+        for b, a, vals in r) for f in fields} for state, r in rows.items()}
+    total = {f: sum(m[f] for m in matches.values()) for f in fields}
+    best = max(total.values())
+    most = [f for f in fields if total[f] == best]
+    profile = ("h100_average" if best > 0 and "power.draw.average" in most
+               else "h100_instant")
+    record = nominal_record("*", profiles.get(profile))
+    check(pipe.monitor is None, "10e: a slab was ingested before the "
+          "profile was chosen")
+    pipe.default_record = record
+    mon = pipe.finish()
+    torch.cuda.synchronize()
+    launches_10e = stream_ingest.launches
+    fma_10e = fma_chain.launches
+    check(launches_10e > 0, "10e: the live pipeline ran no stream_ingest")
+
+    cpu_pipe = CollectorPipeline(device="cpu", rebase=True,
+                                 default_record=record)
+    for batch in batches:
+        cpu_pipe.feed(batch)
+    cpu_mon = cpu_pipe.finish()
+    check(pipe.summary() == cpu_pipe.summary(),
+          f"10e: card {pipe.summary()} vs CPU {cpu_pipe.summary()}")
+    check(pipe.registry.summary() == cpu_pipe.registry.summary()
+          and pipe.registry.uuids == cpu_pipe.registry.uuids,
+          f"10e: registry card {pipe.registry.summary()} vs CPU "
+          f"{cpu_pipe.registry.summary()}")
+    fe = {}
+    for corrected in (True, False):
+        a = mon.fleet_energy(corrected=corrected).total_j
+        b = cpu_mon.fleet_energy(corrected=corrected).total_j
+        check(abs(a - b) <= 1e-12 * abs(b),
+              f"10e: fleet_energy(corrected={corrected}) card {a!r} vs "
+              f"CPU {b!r}")
+        fe["corrected_j" if corrected else "raw_j"] = a
+
+    mine = [(float(b.t[0]), float(b.power_w[list(b.uuid).index(torch_uuid)]))
+            for b in batches]
+    t = np.asarray([m[0] for m in mine])
+    p = np.asarray([m[1] for m in mine])
+    check(p.size >= 100, f"10e: {p.size} readings of the card")
+    check(bool(np.isfinite(p).all() and (p > 0.0).all()),
+          f"10e: readings not finite and positive: {p[~(p > 0.0)][:8]}")
+    distinct = int(np.unique(p).size)
+    check(distinct >= 2, f"10e: one value, {p[0]} W, under the load")
+    sampler.close()
+    again = NvmlSampler()
+    try:
+        p2 = again.sample().power_w[list(again.uuids).index(torch_uuid)]
+    finally:
+        again.close()
+    check(bool(np.isfinite(p2) and p2 > 0.0),
+          f"10e: the second NvmlSampler read {p2}")
+
+    same = p[1:] == p[:-1]
+    change = np.flatnonzero(~same) + 1
+    run_s = np.diff(t[change]) if change.size > 1 else np.empty(0)
+    period = float(mon.update_period_s()[pipe.registry.id_of(torch_uuid)])
+    span = float(t[-1] - t[0])
+    log(f"10e the card's own sensor through NvmlSampler (NVML over ctypes, "
+        f"every {LIVE_PERIOD_S * 1e3:g} ms for {SRC_SMI_S} s under "
+        f"fma_chain niter {niter_10ms} ~ 10 ms on, 10 ms off, {bursts} "
+        f"bursts): {p.size} readings over {span:.3f} s, "
+        f"{missed} deadlines missed; host ms a poll median "
+        f"{float(np.median(poll_ms)):.4f}, p99 "
+        f"{float(np.percentile(poll_ms, 99)):.4f}, max {max(poll_ms):.4f} "
+        f"(limit 1 ms); pipeline.feed median "
+        f"{float(np.median(feed_ms)):.4f} ms; median interval "
+        f"{float(np.median(np.diff(t))) * 1e3:.3f} ms; "
+        f"{float(same.mean()):.1%} of readings repeat the one before, "
+        f"{distinct} distinct values, median time between changes "
+        f"{float(np.median(run_s)) * 1e3 if run_s.size else math.nan:.1f} "
+        f"ms; the monitor's update_period_s {period!r} s; mean "
+        f"{float(p.mean()):.2f} W (min {p.min():.3f}, max {p.max():.3f})")
+    for state, r in rows.items():
+        log(f"10e NVML beside nvidia-smi, {state}: matches of "
+            f"{LIVE_FIELD_READS} (within {LIVE_MATCH_W} W of the reading "
+            f"before or after) {matches[state]}; first rows "
+            + "; ".join(f"{b:.3f}/{a:.3f} vs "
+                        + ", ".join(f"{v:.2f}" for v in vals.values())
+                        for b, a, vals in r[:3]))
+    log(f"10e nvmlDeviceGetPowerUsage equals {' and '.join(most)} most "
+        f"often ({best} of {2 * LIVE_FIELD_READS}): corrections from "
+        f"{profile}; card equals the CPU (summary, registry, energies "
+        f"within 1e-12: raw {fe['raw_j']:.3f} J, corrected "
+        f"{fe['corrected_j']:.3f} J); {launches_10e} stream_ingest "
+        f"launches, {fma_10e} fma_chain ({fma_wave_n} in the wave); a "
+        f"second NvmlSampler read {p2:.3f} W; 10e took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"stream_ingest": dict(launches_10e=launches_10e, nvml_10e=dict(
+                readings=int(p.size), span_s=span, missed=missed,
+                poll_ms_median=float(np.median(poll_ms)),
+                poll_ms_p99=float(np.percentile(poll_ms, 99)),
+                interval_ms=float(np.median(np.diff(t))) * 1e3,
+                repeat_share=float(same.mean()), distinct=distinct,
+                change_ms=(float(np.median(run_s)) * 1e3 if run_s.size
+                           else math.nan),
+                update_period_s=period, mean_w=float(p.mean()),
+                matches=total, field=most, profile=profile, **fe)),
+            "fma_chain": dict(launches_10e=fma_10e)}
 
 
 # ---------------------------------------------------------------------------

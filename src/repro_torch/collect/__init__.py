@@ -9,8 +9,8 @@ The counterpart of :mod:`repro.collect`.  Layers, importable à la carte:
   gpu_uuid → dense-device-id mapping with hot-add / frozen-fleet
   policies;
 * :mod:`repro_torch.collect.sampler` — the NVML-style :class:`Sampler`
-  protocol: :class:`SimulatedSampler` over a ``SensorBank`` and the
-  lazily imported :class:`NvmlSampler`;
+  protocol: :class:`SimulatedSampler` over a ``SensorBank`` and
+  :class:`NvmlSampler` over the driver's NVML library through ``ctypes``;
 * :mod:`repro_torch.collect.assembler` — :class:`SlabAssembler`
   (fixed-size ingest slabs) and :class:`CollectorPipeline` (registry,
   calibration store, a lazy monitor on the card, hot growth);

@@ -9,15 +9,18 @@ answers "one poll of every visible device, now" as a
   collector path (sampler → registry → assembler → monitor) runs without
   hardware; its output equals the simulation-fed
   :func:`~repro_torch.core.stream.replay.replay` bitwise.
-* :class:`NvmlSampler` — real GPUs over ``pynvml``, imported lazily so
-  the module imports on hosts without the NVIDIA stack.
+* :class:`NvmlSampler` — real GPUs over NVML, the driver's
+  ``libnvidia-ml.so.1`` through ``ctypes`` (:mod:`._nvml`), opened when
+  a sampler is built, so the module imports on hosts without the driver.
 """
 from __future__ import annotations
 
+import time
 from typing import Iterator, Optional, Protocol, Sequence
 
 import numpy as np
 
+from repro_torch.collect import _nvml
 from repro_torch.collect.wire import SampleBatch
 
 
@@ -85,32 +88,43 @@ class SimulatedSampler:
 
 
 class NvmlSampler:
-    """Poll real GPUs through NVML (``pynvml``), lazily imported.
+    """Poll real GPUs through NVML: the driver's ``libnvidia-ml.so.1``,
+    bound with ``ctypes`` (:mod:`repro_torch.collect._nvml`), no package.
 
-    Construction raises a clear RuntimeError when the NVIDIA stack is
-    absent, so everything else in :mod:`repro_torch.collect` works on a
-    host without it.
+    ``library`` is what :func:`~repro_torch.collect._nvml.load` opens: the
+    driver's soname by default, or a path or loaded library.  Construction
+    raises a clear RuntimeError when the library cannot be loaded or NVML
+    does not initialise, so everything else in :mod:`repro_torch.collect`
+    works on a host without the driver.  :meth:`close` shuts NVML down.
     """
 
-    def __init__(self):
+    def __init__(self, library=_nvml.LIBRARY):
         try:
-            import pynvml
-        except ImportError as e:
+            nvml = _nvml.load(library)
+        except (OSError, AttributeError) as e:
             raise RuntimeError(
-                "NvmlSampler needs the 'pynvml' package and the NVIDIA "
-                "management library; elsewhere use SimulatedSampler or "
-                "replay a recorded log") from e
-        self._nvml = pynvml
-        pynvml.nvmlInit()
-        n = pynvml.nvmlDeviceGetCount()
-        self._handles = [pynvml.nvmlDeviceGetHandleByIndex(i)
-                         for i in range(n)]
-        self.uuids = np.asarray(
-            [_as_str(pynvml.nvmlDeviceGetUUID(h)) for h in self._handles],
-            dtype=object)
+                f"NvmlSampler needs NVML, the NVIDIA driver's "
+                f"{_nvml.LIBRARY}; loading {library!r} failed: {e}. "
+                f"Elsewhere use SimulatedSampler or replay a recorded "
+                f"log") from e
+        try:
+            nvml.init()
+        except _nvml.NVMLError as e:
+            raise RuntimeError(
+                f"NvmlSampler: nvmlInit_v2 in {_nvml.LIBRARY} failed: "
+                f"{e.text} ({e.code}). Elsewhere use SimulatedSampler or "
+                f"replay a recorded log") from e
+        self._nvml = nvml
+        try:
+            n = nvml.device_count()
+            self._handles = [nvml.handle_by_index(i) for i in range(n)]
+            self.uuids = np.asarray([nvml.uuid(h) for h in self._handles],
+                                    dtype=object)
+        except _nvml.NVMLError:
+            nvml.shutdown()
+            raise
 
     def sample(self) -> SampleBatch:
-        import time
         nvml = self._nvml
         t = time.time()
         n = len(self._handles)
@@ -118,19 +132,15 @@ class NvmlSampler:
         util = np.full(n, np.nan)
         for i, h in enumerate(self._handles):
             try:
-                power[i] = nvml.nvmlDeviceGetPowerUsage(h) * 1e-3  # mW → W
-            except nvml.NVMLError:
+                power[i] = nvml.power_usage(h) * 1e-3  # mW → W
+            except _nvml.NVMLError:
                 pass                      # [N/A]: stays NaN, counted
             try:                          # downstream by the monitor
-                util[i] = nvml.nvmlDeviceGetUtilizationRates(h).gpu
-            except nvml.NVMLError:
+                util[i] = nvml.utilization_rates(h).gpu
+            except _nvml.NVMLError:
                 pass
         return SampleBatch(uuid=self.uuids.copy(), t=np.full(n, t),
                            power_w=power, util=util)
 
     def close(self) -> None:
-        self._nvml.nvmlShutdown()
-
-
-def _as_str(x) -> str:
-    return x.decode() if isinstance(x, bytes) else str(x)
+        self._nvml.shutdown()

@@ -424,10 +424,11 @@ def test_sampler_uuid_stability():
         SimulatedSampler(bank, period_s=0.0)
 
 
-def test_nvml_sampler_needs_pynvml(monkeypatch):
-    monkeypatch.setitem(sys.modules, "pynvml", None)
-    with pytest.raises(RuntimeError, match="pynvml"):
-        NvmlSampler()
+def test_nvml_sampler_needs_the_nvml_library(tmp_path):
+    missing = str(tmp_path / "libnvidia-ml.so.1")
+    with pytest.raises(RuntimeError, match=r"libnvidia-ml\.so\.1") as e:
+        NvmlSampler(missing)
+    assert missing in str(e.value) and "SimulatedSampler" in str(e.value)
 
 
 # ---------------------------------------------------------------------------
