@@ -1,0 +1,10 @@
+"""The card's idle time a slab under the ingest core's ``ingest.kernel``
+phase: the idle gaps inside portbench's ``ingest`` spans at the instants
+the program's innermost open phase was ``ingest.kernel`` (its ``read.*``
+spans included), on the trace's clock (``portbench.spans``), in ms."""
+from portbench import spans
+
+
+def read(ctx):
+    got = spans.phase_idle(ctx, "ingest")
+    return None if got is None else 1e3 * got[0]["ingest.kernel"] / got[1]

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common import spans
 from repro_torch.core import profiles as _profiles
 from repro_torch.core.calibrate import nominal_record
 from repro_torch.core.ground_truth import ActivityTimeline, TimelineBank
@@ -72,7 +73,9 @@ def auto_chunk_devices(n_devices: int, per_device_elems: int,
 
 def _as_tensor(x, n: int, device: torch.device) -> torch.Tensor:
     """A scalar or [n] value as an [n] float64 tensor on ``device``."""
-    t = torch.as_tensor(x, dtype=F64, device=device)
+    on_card = isinstance(x, torch.Tensor) and x.device == device
+    with spans.read("audit.upload", 0 if on_card else 1):
+        t = torch.as_tensor(x, dtype=F64, device=device)
     if t.ndim == 0:
         return t.expand(n)
     if t.shape != (n,):
@@ -135,14 +138,16 @@ class SensorBank:
             return np.array([fn(p) for p in by_code], dtype=dtype)[code_np]
 
         period = table(lambda p: p.update_period_s)
-        self.update_period_s = period.to(self.device)
-        self.window_s = table(lambda p: p.window_s if p.window_s is not None
-                              else p.update_period_s).to(self.device)
-        self.tau_s = table(lambda p: p.tau_s).to(self.device)
-        self.quantum_w = table(lambda p: p.quantum_w).to(self.device)
-        self.noise_w = table(lambda p: p.noise_w).to(self.device)
-        self.sampled_fraction = table(
-            lambda p: p.sampled_fraction).to(self.device)
+        with spans.read("audit.bank", 6):
+            self.update_period_s = period.to(self.device)
+            self.window_s = table(
+                lambda p: p.window_s if p.window_s is not None
+                else p.update_period_s).to(self.device)
+            self.tau_s = table(lambda p: p.tau_s).to(self.device)
+            self.quantum_w = table(lambda p: p.quantum_w).to(self.device)
+            self.noise_w = table(lambda p: p.noise_w).to(self.device)
+            self.sampled_fraction = table(
+                lambda p: p.sampled_fraction).to(self.device)
         self.transient = host(lambda p: p.transient, object)
         self.module_scope = host(lambda p: p.scope == "module", bool)
         self.supported = host(lambda p: p.supported, bool)
@@ -159,8 +164,9 @@ class SensorBank:
             u[2] * period,
             torch.where(est, 1.0 + (2.0 * u_model - 1.0)
                         * table(lambda p: p.model_error), 1.0))
-        self._gain, self._offset, self._phase, self._model_gain = (
-            x.to(self.device) for x in hidden)
+        with spans.read("audit.bank", 4):
+            self._gain, self._offset, self._phase, self._model_gain = (
+                x.to(self.device) for x in hidden)
 
         self._ticks: Optional[torch.Tensor] = None    # [N, M] padded
         self._values: Optional[torch.Tensor] = None   # [N, M] padded
@@ -230,7 +236,8 @@ class SensorBank:
         """A bank over devices ``idx`` of this one: every per-device field
         and hidden parameter is sliced, not re-drawn."""
         idx = np.asarray(torch.as_tensor(idx).cpu(), dtype=np.int64)
-        ti = torch.as_tensor(idx, device=self.device)
+        with spans.read("audit.subset"):
+            ti = torch.as_tensor(idx, device=self.device)
         nb = object.__new__(SensorBank)
         nb.device = self.device
         nb.seed = self.seed
@@ -296,13 +303,16 @@ class SensorBank:
         # padded tick grid: the reference's `phase + T*k` expression
         k0 = torch.floor((t_start - self._phase) / T).to(torch.int64)
         k1 = torch.ceil((te - self._phase) / T).to(torch.int64)
-        m = int((k1 - k0).max()) + 1
+        with spans.read("audit.ticks"):
+            m = int((k1 - k0).max()) + 1
         ks = k0[:, None] + torch.arange(m, device=dev)[None, :]
         ticks = self._phase[:, None] + T[:, None] * ks
         valid = (ks <= k1[:, None]) & (ticks >= t_start - T[:, None])
         first = valid.to(torch.int8).argmax(dim=1)
         count = valid.sum(dim=1)
-        if bool((count <= 0).any()):
+        with spans.read("audit.ticks"):
+            silent = bool((count <= 0).any())
+        if silent:
             raise ValueError("a device published no readings in the window")
         last = first + count - 1
 
@@ -325,7 +335,8 @@ class SensorBank:
                 rows = np.nonzero((self.transient == kind) & sel)[0]
                 if len(rows) == 0:
                     continue
-                rr = torch.as_tensor(rows, device=dev)
+                with spans.read("audit.upload"):
+                    rr = torch.as_tensor(rows, device=dev)
                 if src.n_rows == 1:
                     tl = src.arrays
                 elif remap is not None:
@@ -357,8 +368,9 @@ class SensorBank:
         """Each device's fleet row [N, 1] on the bank's device: the row
         word of its keyed-stream counters."""
         keyed_rng.check_index("fleet row", int(self._rows.max()))
-        return torch.as_tensor(self._rows, dtype=torch.int64,
-                               device=self.device)[:, None]
+        with spans.read("audit.upload"):
+            return torch.as_tensor(self._rows, dtype=torch.int64,
+                                   device=self.device)[:, None]
 
     def _noise(self, m: int, first: torch.Tensor,
                count: torch.Tensor) -> torch.Tensor:
@@ -772,21 +784,36 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
             n_devices, profile, workload, seed, good_practice, n_trials,
             chunk=n_devices if chunk_devices is None else chunk_devices,
             mesh=mesh, prefetch_workloads=prefetch_workloads, device=device)
-    dev = resolve_device(device)
-    workload, names, spec, ws_full, calibs = _audit_setup(
-        n_devices, profile, workload, good_practice, dev)
-    shared = spec is None and ws_full is None
+    with spans.span("audit.run"):
+        return _fleet_audit(n_devices, profile, workload, seed,
+                            good_practice, n_trials, chunk_devices,
+                            prefetch_workloads, resolve_device(device))
 
-    if chunk_devices is None:
-        slabs = [(0, n_devices)]
-    else:
-        if chunk_devices < 1:
-            raise ValueError(f"chunk_devices must be >= 1, "
-                             f"got {chunk_devices}")
-        slabs = [(lo, min(lo + chunk_devices, n_devices))
-                 for lo in range(0, n_devices, chunk_devices)]
 
-    fleet = _fleet_bank(names, seed, dev)
+def _fleet_audit(n_devices, profile, workload, seed, good_practice,
+                 n_trials, chunk_devices, prefetch_workloads,
+                 dev: torch.device) -> FleetAuditResult:
+    """:func:`fleet_audit` on one process, in the phases its spans name:
+    ``audit.bank`` (arguments and the fleet's sensor bank),
+    ``audit.synth_wait`` (a slab's workloads: synthesised inline, or
+    waited for from the prefetch worker), ``audit.measure`` (the slab's
+    naive and §5 energies) and ``audit.moments`` (the streamed error
+    moments)."""
+    with spans.span("audit.bank"):
+        workload, names, spec, ws_full, calibs = _audit_setup(
+            n_devices, profile, workload, good_practice, dev)
+        shared = spec is None and ws_full is None
+
+        if chunk_devices is None:
+            slabs = [(0, n_devices)]
+        else:
+            if chunk_devices < 1:
+                raise ValueError(f"chunk_devices must be >= 1, "
+                                 f"got {chunk_devices}")
+            slabs = [(lo, min(lo + chunk_devices, n_devices))
+                     for lo in range(0, n_devices, chunk_devices)]
+
+        fleet = _fleet_bank(names, seed, dev)
     keys = ["naive_j", "naive_err"] + ([] if shared else ["true_j"]) + (
         ["gp_j", "gp_err"] if good_practice else [])
     full = {key: torch.empty(n_devices, dtype=F64, device=dev)
@@ -803,21 +830,27 @@ def fleet_audit(n_devices: int, profile: Union[str, Sequence[str]] = "a100",
         if labels is None:
             return
         for label in np.unique(labels):
+            with spans.read("audit.moments", 2):
+                sel = err[torch.as_tensor(labels == label, device=dev)]
             sm[key]["by_scenario"].setdefault(
-                str(label), StreamingMoments()).update(
-                    err[torch.as_tensor(labels == label, device=dev)])
+                str(label), StreamingMoments()).update(sel)
 
-    ws_iter = _slab_workloads(spec, ws_full, slabs, prefetch_workloads, dev)
-    for (lo, hi), ws in zip(slabs, ws_iter):
-        out, labels = _audit_slab(fleet, lo, hi, ws, workload, calibs,
-                                  good_practice, n_trials)
-        for key in keys:
-            full[key][lo:hi] = out[key]
+    ws_iter = iter(_slab_workloads(spec, ws_full, slabs, prefetch_workloads,
+                                   dev))
+    for lo, hi in slabs:
+        with spans.span("audit.synth_wait"):
+            ws = next(ws_iter)
+        with spans.span("audit.measure"):
+            out, labels = _audit_slab(fleet, lo, hi, ws, workload, calibs,
+                                      good_practice, n_trials)
+            for key in keys:
+                full[key][lo:hi] = out[key]
         if scenarios is not None:
             scenarios[lo:hi] = labels
-        _stream("naive", out["naive_err"], labels)
-        if good_practice:
-            _stream("good_practice", out["gp_err"], labels)
+        with spans.span("audit.moments"):
+            _stream("naive", out["naive_err"], labels)
+            if good_practice:
+                _stream("good_practice", out["gp_err"], labels)
 
     return FleetAuditResult(
         n_devices=n_devices, profile_names=names,

@@ -18,6 +18,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common import spans
 from repro_torch.common.config import Config
 from repro_torch.engine_backend import keyed_rng
 from repro_torch.engine_backend.pytrees import TimelineArrays
@@ -182,14 +183,18 @@ class TimelineBank:
             raise ValueError("empty TimelineBank (no rows)")
         if idle.shape != (n,) or ns.shape != (n,):
             raise ValueError(f"idle_w/n_segs must be [{n}]")
-        if bool(((ns < 1) | (ns > s)).any()):
+        with spans.read("audit.timeline"):
+            bad_segs = bool(((ns < 1) | (ns > s)).any())
+        if bad_segs:
             raise ValueError(f"n_segs must be within [1, {s}] "
                              "(a row needs at least one segment)")
         cols = torch.arange(s + 1, device=e.device)[None, :]
         last = torch.gather(e, 1, ns[:, None])
         e = torch.where(cols > ns[:, None], last, e)
         p = torch.where(cols[:, :s] >= ns[:, None], idle[:, None], p)
-        if bool((torch.diff(e, dim=1) < -1e-12).any()):
+        with spans.read("audit.timeline"):
+            falling = bool((torch.diff(e, dim=1) < -1e-12).any())
+        if falling:
             raise ValueError("edges must be non-decreasing per row")
         object.__setattr__(self, "edges", e)
         object.__setattr__(self, "powers", p)

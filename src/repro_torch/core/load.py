@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common import spans
 from repro_torch.core.ground_truth import (ActivityTimeline, TimelineBank,
                                            from_segments)
 from repro_torch.core.meter import Workload, WorkloadSet
@@ -215,8 +216,10 @@ def _live(counts: torch.Tensor, width: int) -> torch.Tensor:
 
 def _scenario_streams(seeds, device: torch.device) -> ScenarioStreams:
     """The scenario streams of ``seeds`` ([N] ints) on ``device``."""
-    return ScenarioStreams(torch.as_tensor(np.asarray(seeds, dtype=np.int64),
-                                           device=device))
+    with spans.read("audit.synth"):
+        keys = torch.as_tensor(np.asarray(seeds, dtype=np.int64),
+                               device=device)
+    return ScenarioStreams(keys)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +265,8 @@ def _linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
     pts = [i * step + start for i in range(n)]
     if n > 1:
         pts[-1] = stop
-    return torch.tensor(pts, dtype=F64, device=device)
+    with spans.read("audit.synth"):
+        return torch.tensor(pts, dtype=F64, device=device)
 
 
 def _training_parts(streams, idle_w=60.0, peak_w=250.0) -> Parts:
@@ -329,7 +333,8 @@ def _inference_parts(streams, window_s=0.350, rate_hz=14.0, idle_w=60.0,
     pw = torch.where(none & first, idle_w, pw)
 
     n_segs = emit.sum(dim=1)
-    smax = int(n_segs.max())
+    with spans.read("audit.synth"):
+        smax = int(n_segs.max())
     slots = torch.where(emit, torch.cumsum(emit, dim=1) - 1, smax)
     out_dur = torch.zeros((n, smax + 1), dtype=F64, device=dev)
     out_pw = torch.full((n, smax + 1), idle_w, dtype=F64, device=dev)
@@ -679,9 +684,10 @@ def mixed_fleet_bank(n: int, mix: Optional[Dict[str, float]] = None,
     for kind in np.unique(labels):
         rows = np.flatnonzero(labels == kind)
         streams = _scenario_streams(seed + 1 + fleet_rows[rows], dev)
-        parts.append((torch.as_tensor(rows, device=dev),
-                      _PARTS[str(kind)](streams, idle_w=idle_w,
-                                        peak_w=peak_w)))
+        with spans.read("audit.synth"):
+            rows_t = torch.as_tensor(rows, device=dev)
+        parts.append((rows_t, _PARTS[str(kind)](streams, idle_w=idle_w,
+                                                peak_w=peak_w)))
     m = hi - lo
     smax = max(p.shape[1] for _, (_, p, _) in parts)
     edges = torch.zeros((m, smax + 1), dtype=F64, device=dev)

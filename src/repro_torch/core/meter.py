@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common import spans
 from repro_torch.core.calibrate import CalibrationRecord
 from repro_torch.core.ground_truth import ActivityTimeline, TimelineBank
 from repro_torch.engine_backend import keyed_rng
@@ -350,12 +351,14 @@ def _train_bank(ws: WorkloadSet, rows: np.ndarray, reps: np.ndarray,
     scatters are exact.  One host read: the widest train."""
     tl = ws.timeline_bank
     dev = tl.device
-    rows_t = torch.as_tensor(np.asarray(rows), device=dev)
+    with spans.read("audit.train", 2):
+        rows_t = torch.as_tensor(np.asarray(rows), device=dev)
+        n_reps = torch.as_tensor(np.asarray(reps, dtype=np.int64),
+                                 device=dev)
     e, p = tl.edges[rows_t], tl.powers[rows_t]
     idle, k = tl.idle_w[rows_t], tl.n_segs[rows_t]
     g, smax = p.shape
     rmax = int(np.max(reps))
-    n_reps = torch.as_tensor(np.asarray(reps, dtype=np.int64), device=dev)
     t0 = e[:, 0]
     rel = e - t0[:, None]
     dur = torch.gather(rel, 1, k[:, None])[:, 0]
@@ -369,7 +372,8 @@ def _train_bank(ws: WorkloadSet, rows: np.ndarray, reps: np.ndarray,
     off = r.to(F64)[None, :] * dur[:, None] + gaps.to(F64) * W
     live_rep = r[None, :] < n_reps[:, None]
     n_out = n_reps * k + torch.gather(gaps, 1, (n_reps - 1)[:, None])[:, 0]
-    width = int(n_out.max())
+    with spans.read("audit.train"):
+        width = int(n_out.max())
     drop = width + 1                  # a column no kept value lands in
 
     j = torch.arange(smax, device=dev)
@@ -444,8 +448,9 @@ def _baseline_rows(bank: "SensorBank", baseline: float) -> torch.Tensor:
     """Per-device baseline [N] on the bank's device: the host baseline is
     debited from module-scope rows only (chip-scope sensors never see
     host power)."""
-    return torch.as_tensor(np.where(bank.module_scope, baseline, 0.0),
-                           dtype=F64, device=bank.device)
+    with spans.read("audit.upload"):
+        return torch.as_tensor(np.where(bank.module_scope, baseline, 0.0),
+                               dtype=F64, device=bank.device)
 
 
 def as_workload_set(workload: Union[Workload, Sequence[Workload],
@@ -479,7 +484,8 @@ def _trial_starts(seeds: np.ndarray, n_trials: int,
         raise ValueError("protocol seeds must be non-negative")
     keyed_rng.check_index("protocol seed", int(seeds.max()))
     dev = resolve_device(device)
-    rows = torch.as_tensor(seeds, device=dev)[:, None]
+    with spans.read("audit.upload"):
+        rows = torch.as_tensor(seeds, device=dev)[:, None]
     return keyed_rng.uniform(0, rows,
                              torch.arange(n_trials, device=dev)[None, :],
                              keyed_rng.TAG_TRIAL)
@@ -556,7 +562,8 @@ def measure_good_practice_batch(
     names = np.array([p.name for p in bank.profiles])
     for name in sorted(set(names)):
         rows = np.nonzero(names == name)[0]
-        rows_t = torch.as_tensor(rows, device=dev)
+        with spans.read("audit.upload"):
+            rows_t = torch.as_tensor(rows, device=dev)
         sub = bank.subset(rows)
         cal = calibs[name]
         part_time = cal.sampled_fraction < 0.999
@@ -599,7 +606,8 @@ def measure_good_practice_batch(
                 trials[rows_t, t] = e / kept
         else:
             dur_t = ws.durations_s[rows_t]
-            dur = dur_t.cpu().numpy()
+            with spans.read("audit.durations"):
+                dur = dur_t.cpu().numpy()
             reps = _reps_for(dur, cfg)
             n_skip = np.minimum(
                 np.ceil(rise / np.maximum(dur, 1e-6)).astype(np.int64),
@@ -613,10 +621,11 @@ def measure_good_practice_batch(
 
             def f64(x):
                 return torch.as_tensor(x, dtype=F64, device=dev)
-            kept = f64(reps - n_skip)
-            off_begin = f64(n_skip) * dur_t + f64(gb) * W
-            off_end = f64(reps) * dur_t + f64(ge) * W
-            gaps = f64(ge - gb)
+            with spans.read("audit.upload", 6):
+                kept = f64(reps - n_skip)
+                off_begin = f64(n_skip) * dur_t + f64(gb) * W
+                off_end = f64(reps) * dur_t + f64(ge) * W
+                gaps = f64(ge - gb)
             tb0 = _train_bank(ws, rows, reps, shifts, W)
             idle = tb0.idle_w
             reps_out[rows] = reps
@@ -631,8 +640,8 @@ def measure_good_practice_batch(
                 e = e - gaps * W * idle
                 trials[rows_t, t] = e / kept
 
+    with spans.read("audit.upload"):
+        reps_t = torch.as_tensor(reps_out, device=dev)
     return BatchedEnergyEstimate(trials.mean(dim=1),
                                  trials.std(dim=1, correction=0),
-                                 cfg.n_trials,
-                                 torch.as_tensor(reps_out, device=dev),
-                                 trials)
+                                 cfg.n_trials, reps_t, trials)

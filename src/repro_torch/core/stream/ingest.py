@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.common import spans
 from repro_torch.core.fleet_engine import StreamingMoments
 from repro_torch.core.stream import schema
 from repro_torch.core.stream.estimators import (OnlinePeriodEstimator,
@@ -258,8 +259,9 @@ class IngestCore:
         """None when every id is in range; else the in-range mask (or a
         raise, with ``strict_ids``)."""
         ok = (dev >= 0) & (dev < self.n_devices)
-        if bool(ok.all()):
-            return None
+        with spans.read("ingest.ids"):
+            if bool(ok.all()):
+                return None
         if self.strict_ids:
             raise ValueError("device id out of range")
         return ok
@@ -272,126 +274,149 @@ class IngestCore:
         order; duplicates, late and non-finite samples are dropped and
         counted.  Out-of-range ids raise, or with ``strict_ids=False`` are
         rejected and counted."""
+        with spans.span("ingest.flat"):
+            return self._ingest(dev, t, v)
+
+    def _ingest(self, dev, t, v) -> IngestReport:
         d0 = self.device
-        dev = torch.as_tensor(dev, device=d0).to(I64).reshape(-1)
-        t = torch.as_tensor(t, dtype=F64, device=d0).reshape(-1)
-        v = torch.as_tensor(v, dtype=F64, device=d0).reshape(-1)
-        if not (dev.shape == t.shape == v.shape):
-            raise ValueError(f"shape mismatch: dev {tuple(dev.shape)}, "
-                             f"t {tuple(t.shape)}, v {tuple(v.shape)}")
-        n_rej = 0
-        if dev.numel():
-            ok_id = self._check_ids(dev)
-            if ok_id is not None:
-                n_rej = int(ok_id.numel() - ok_id.sum())
-                self._n_rejected += n_rej
-                dev, t, v = dev[ok_id], t[ok_id], v[ok_id]
-        k_in = dev.numel()
-        if k_in == 0:
-            if n_rej:               # counters mutated: publish fresh
-                self.epoch += 1
-            return IngestReport(0, 0, 0, 0, 0, n_rej)
-        # even an all-dropped slab mutates counters: publish fresh
-        self.epoch += 1
-
-        ok = torch.isfinite(t) & torch.isfinite(v)
-        n_invalid = int(k_in - ok.sum())
-        if n_invalid:
-            self._n_invalid += n_invalid
-            dev, t, v = dev[ok], t[ok], v[ok]
-
-        # np.lexsort((t, dev)) as two stable sorts: by t, then by device
-        order = torch.sort(t, stable=True).indices
-        dev, t, v = dev[order], t[order], v[order]
-        order = torch.sort(dev, stable=True).indices
-        dev, t, v = dev[order], t[order], v[order]
-
-        # duplicates: same (device, t) — keep the first arrival
-        dup = torch.zeros_like(dev, dtype=torch.bool)
-        dup[1:] = (dev[1:] == dev[:-1]) & (t[1:] == t[:-1])
         st = self.state
-        # vs stored state: strictly older samples arrive late, a repeat
-        # of the newest timestamp is a duplicate
-        has_d = st.has[dev]
-        last_d = st.last_t[dev]
-        late = ~dup & has_d & (t < last_d)
-        dropped = dup | (~dup & has_d & (t == last_d))
-        n_dup, n_late = (int(x) for x in
-                         torch.stack([dropped.sum(), late.sum()]).tolist())
-        if n_dup:
-            st.n_dup.index_add_(0, dev[dropped],
-                                torch.ones(n_dup, dtype=I64, device=d0))
-        if n_late:
-            st.n_late.index_add_(0, dev[late],
-                                 torch.ones(n_late, dtype=I64, device=d0))
-        keep = ~(dropped | late)
-        dev, t, v = dev[keep], t[keep], v[keep]
-        k = dev.numel()
-        if k == 0:
-            return IngestReport(0, n_dup, n_late, n_invalid, 0, n_rej)
+        with spans.span("ingest.prep"):
+            dev = torch.as_tensor(dev, device=d0).to(I64).reshape(-1)
+            t = torch.as_tensor(t, dtype=F64, device=d0).reshape(-1)
+            v = torch.as_tensor(v, dtype=F64, device=d0).reshape(-1)
+            if not (dev.shape == t.shape == v.shape):
+                raise ValueError(f"shape mismatch: dev {tuple(dev.shape)}, "
+                                 f"t {tuple(t.shape)}, v {tuple(v.shape)}")
+            n_rej = 0
+            if dev.numel():
+                ok_id = self._check_ids(dev)
+                if ok_id is not None:
+                    with spans.read("ingest.ids", 4):
+                        n_rej = int(ok_id.numel() - ok_id.sum())
+                        self._n_rejected += n_rej
+                        dev, t, v = dev[ok_id], t[ok_id], v[ok_id]
+            k_in = dev.numel()
+            if k_in == 0:
+                if n_rej:               # counters mutated: publish fresh
+                    self.epoch += 1
+                return IngestReport(0, 0, 0, 0, 0, n_rej)
+            # even an all-dropped slab mutates counters: publish fresh
+            self.epoch += 1
 
-        v = v - self.corrections.baseline_w[dev]
+            ok = torch.isfinite(t) & torch.isfinite(v)
+            with spans.read("ingest.finite"):
+                n_invalid = int(k_in - ok.sum())
+            if n_invalid:
+                self._n_invalid += n_invalid
+                with spans.read("ingest.finite", 3):
+                    dev, t, v = dev[ok], t[ok], v[ok]
 
-        # compact to per-slab groups (devices sorted => contiguous)
-        first = torch.ones_like(dev, dtype=torch.bool)
-        first[1:] = dev[1:] != dev[:-1]
-        start_idx = torch.nonzero(first)[:, 0]
-        end_idx = torch.cat([start_idx[1:] - 1,
-                             torch.full((1,), k - 1, dtype=I64, device=d0)])
-        u_dev = dev[start_idx]
-        seg = torch.cumsum(first, 0) - 1
+            # np.lexsort((t, dev)) as two stable sorts: by t, then by device
+            order = torch.sort(t, stable=True).indices
+            dev, t, v = dev[order], t[order], v[order]
+            order = torch.sort(dev, stable=True).indices
+            dev, t, v = dev[order], t[order], v[order]
 
-        had = st.has[u_dev]
-        c = self.corrections
-        run_t_in = torch.where(had, st.run_t[u_dev], t[start_idx])
-        out = stream_ingest(
-            t, v, seg, first, start_idx, end_idx,
-            st.last_t[u_dev], st.last_v[u_dev], had, run_t_in,
-            st.n_changes[u_dev], c.gain[u_dev], c.offset_w[u_dev],
-            c.time_shift_s[u_dev], self._win_a[u_dev], self._win_b[u_dev],
-            self._max_hold[u_dev], self._env_lo[u_dev], self._env_hi[u_dev],
-            self.trapezoid)
+            # duplicates: same (device, t) — keep the first arrival
+            dup = torch.zeros_like(dev, dtype=torch.bool)
+            dup[1:] = (dev[1:] == dev[:-1]) & (t[1:] == t[:-1])
+            # vs stored state: strictly older samples arrive late, a repeat
+            # of the newest timestamp is a duplicate
+            has_d = st.has[dev]
+            last_d = st.last_t[dev]
+            late = ~dup & has_d & (t < last_d)
+            dropped = dup | (~dup & has_d & (t == last_d))
+            with spans.read("ingest.dups"):
+                n_dup, n_late = (int(x) for x in torch.stack(
+                    [dropped.sum(), late.sum()]).tolist())
+            if n_dup:
+                with spans.read("ingest.dups"):
+                    st.n_dup.index_add_(0, dev[dropped], torch.ones(
+                        n_dup, dtype=I64, device=d0))
+            if n_late:
+                with spans.read("ingest.dups"):
+                    st.n_late.index_add_(0, dev[late], torch.ones(
+                        n_late, dtype=I64, device=d0))
+            keep = ~(dropped | late)
+            with spans.read("ingest.keep", 3):
+                dev, t, v = dev[keep], t[keep], v[keep]
+            k = dev.numel()
+            if k == 0:
+                return IngestReport(0, n_dup, n_late, n_invalid, 0, n_rej)
 
-        # ring snapshots see running totals *before* this slab is folded
-        if self.ring.slots:
-            ordinal = torch.arange(k, device=d0) - start_idx[seg]
-            self.ring.write(dev, ordinal, out.counts[seg], t, v,
-                            st.energy_j[u_dev][seg] + out.cum_e,
-                            st.energy_corr_j[u_dev][seg] + out.cum_ec,
-                            u_dev, out.counts)
-        else:
-            self.ring.n_written[u_dev] += out.counts
+            v = v - self.corrections.baseline_w[dev]
 
-        old_last_t = st.last_t[u_dev]
-        st.first_t[u_dev] = torch.where(had, st.first_t[u_dev],
-                                        t[start_idx])
-        st.last_t[u_dev] = out.new_t
-        st.last_v[u_dev] = out.new_v
-        st.has[u_dev] = True
-        st.n_samples[u_dev] += out.counts
-        st.energy_j[u_dev] += out.d_energy
-        st.energy_corr_j[u_dev] += out.d_energy_corr
-        st.win_j[u_dev] += out.d_win
-        st.win_corr_j[u_dev] += out.d_win_corr
-        st.run_t[u_dev] = out.new_run_t
-        st.n_changes[u_dev] = out.new_n_changes
-        st.n_out[u_dev] += out.n_out
+            # compact to per-slab groups (devices sorted => contiguous)
+            first = torch.ones_like(dev, dtype=torch.bool)
+            first[1:] = dev[1:] != dev[:-1]
+            with spans.read("ingest.groups"):
+                start_idx = torch.nonzero(first)[:, 0]
+            end_idx = torch.cat([start_idx[1:] - 1,
+                                 torch.full((1,), k - 1, dtype=I64,
+                                            device=d0)])
+            u_dev = dev[start_idx]
+            seg = torch.cumsum(first, 0) - 1
 
-        # drift EWMA over wall time, one slab-mean step per device
-        mean_vc = out.sum_vc / out.counts
-        alpha = torch.exp(-torch.clamp_min(out.new_t - old_last_t, 0.0)
-                          / self.drift_tau_s)
-        st.ewma_w[u_dev] = torch.where(
-            had, alpha * st.ewma_w[u_dev] + (1.0 - alpha) * mean_vc, mean_vc)
+            had = st.has[u_dev]
+            c = self.corrections
+            run_t_in = torch.where(had, st.run_t[u_dev], t[start_idx])
+        with spans.span("ingest.kernel"):
+            out = stream_ingest(
+                t, v, seg, first, start_idx, end_idx,
+                st.last_t[u_dev], st.last_v[u_dev], had, run_t_in,
+                st.n_changes[u_dev], c.gain[u_dev], c.offset_w[u_dev],
+                c.time_shift_s[u_dev], self._win_a[u_dev], self._win_b[u_dev],
+                self._max_hold[u_dev], self._env_lo[u_dev],
+                self._env_hi[u_dev], self.trapezoid)
 
-        rec = out.run_rec
-        self.periods.record(dev[rec], out.run_dur[rec])
+        with spans.span("ingest.fold"):
+            # ring snapshots see running totals *before* this slab is folded
+            if self.ring.slots:
+                ordinal = torch.arange(k, device=d0) - start_idx[seg]
+                self.ring.write(dev, ordinal, out.counts[seg], t, v,
+                                st.energy_j[u_dev][seg] + out.cum_e,
+                                st.energy_corr_j[u_dev][seg] + out.cum_ec,
+                                u_dev, out.counts)
+            else:
+                self.ring.n_written[u_dev] += out.counts
+
+            old_last_t = st.last_t[u_dev]
+            st.first_t[u_dev] = torch.where(had, st.first_t[u_dev],
+                                            t[start_idx])
+            st.last_t[u_dev] = out.new_t
+            st.last_v[u_dev] = out.new_v
+            with spans.read("ingest.has"):     # a scalar sent to the card
+                st.has[u_dev] = True
+            st.n_samples[u_dev] += out.counts
+            st.energy_j[u_dev] += out.d_energy
+            st.energy_corr_j[u_dev] += out.d_energy_corr
+            st.win_j[u_dev] += out.d_win
+            st.win_corr_j[u_dev] += out.d_win_corr
+            st.run_t[u_dev] = out.new_run_t
+            st.n_changes[u_dev] = out.new_n_changes
+            st.n_out[u_dev] += out.n_out
+
+            # drift EWMA over wall time, one slab-mean step per device
+            mean_vc = out.sum_vc / out.counts
+            alpha = torch.exp(-torch.clamp_min(out.new_t - old_last_t, 0.0)
+                              / self.drift_tau_s)
+            st.ewma_w[u_dev] = torch.where(
+                had, alpha * st.ewma_w[u_dev] + (1.0 - alpha) * mean_vc,
+                mean_vc)
+
+            rec = out.run_rec
+            with spans.read("ingest.runs", 2):
+                rec_dev, rec_dur = dev[rec], out.run_dur[rec]
+            self.periods.record(rec_dev, rec_dur)
 
         self._merge_label_moments(self._label_codes[u_dev], out.counts,
                                   out.sum_vc, out.sum_vc2, out.sum_abs_vc,
                                   out.max_abs_vc)
         if self.health is not None:
-            self._maybe_update_health(float(out.new_t.max()))
+            with spans.span("ingest.fold"):
+                with spans.read("ingest.health"):
+                    t_now = float(out.new_t.max())
+                self._maybe_update_health(t_now)
         return IngestReport(k, n_dup, n_late, n_invalid, int(u_dev.numel()),
                             n_rej)
 
@@ -405,95 +430,112 @@ class IngestCore:
         times, non-finite values, samples at or behind a device's newest
         accepted sample) fall back to :meth:`ingest` with identical
         semantics."""
-        d0 = self.device
-        dev = torch.as_tensor(dev, device=d0).to(I64).reshape(-1)
-        ts = torch.as_tensor(ts, dtype=F64, device=d0).reshape(-1)
-        vals = torch.as_tensor(vals, dtype=F64, device=d0)
-        d, m = dev.numel(), ts.numel()
-        if tuple(vals.shape) != (d, m):
-            raise ValueError(f"vals must be [{d}, {m}], "
-                             f"got {tuple(vals.shape)}")
-        if d == 0 or m == 0:
-            return IngestReport(0, 0, 0, 0, 0)
-        n_rej = 0
-        ok_id = self._check_ids(dev)
-        if ok_id is not None:
-            n_rej = int(ok_id.numel() - ok_id.sum()) * m
-            self._n_rejected += n_rej
-            dev, vals = dev[ok_id], vals[ok_id]
-            d = dev.numel()
-            if d == 0:
-                self.epoch += 1     # counters mutated: publish fresh
-                return IngestReport(0, 0, 0, 0, 0, n_rej)
+        with spans.span("ingest.grid"):
+            return self._ingest_grid(dev, ts, vals)
 
+    def _ingest_grid(self, dev, ts, vals) -> IngestReport:
+        d0 = self.device
         st = self.state
-        clean = torch.stack([
-            (torch.diff(dev) > 0).all(),
-            (torch.diff(ts) > 0).all(),
-            torch.isfinite(ts).all(),
-            torch.isfinite(vals).all(),
-            ~(st.has[dev] & (ts[0] <= st.last_t[dev])).any()]).all()
-        if self.health is None:
-            clean = bool(clean)
-        else:
-            # the health step's clock comes back in the same transfer
-            clean, t_last = torch.stack([clean.to(F64), ts[-1]]).tolist()
-            clean = bool(clean)
+        with spans.span("ingest.prep"):
+            dev = torch.as_tensor(dev, device=d0).to(I64).reshape(-1)
+            ts = torch.as_tensor(ts, dtype=F64, device=d0).reshape(-1)
+            vals = torch.as_tensor(vals, dtype=F64, device=d0)
+            d, m = dev.numel(), ts.numel()
+            if tuple(vals.shape) != (d, m):
+                raise ValueError(f"vals must be [{d}, {m}], "
+                                 f"got {tuple(vals.shape)}")
+            if d == 0 or m == 0:
+                return IngestReport(0, 0, 0, 0, 0)
+            n_rej = 0
+            ok_id = self._check_ids(dev)
+            if ok_id is not None:
+                with spans.read("ingest.ids", 3):
+                    n_rej = int(ok_id.numel() - ok_id.sum()) * m
+                    self._n_rejected += n_rej
+                    dev, vals = dev[ok_id], vals[ok_id]
+                d = dev.numel()
+                if d == 0:
+                    self.epoch += 1     # counters mutated: publish fresh
+                    return IngestReport(0, 0, 0, 0, 0, n_rej)
+
+            clean = torch.stack([
+                (torch.diff(dev) > 0).all(),
+                (torch.diff(ts) > 0).all(),
+                torch.isfinite(ts).all(),
+                torch.isfinite(vals).all(),
+                ~(st.has[dev] & (ts[0] <= st.last_t[dev])).any()]).all()
+            with spans.read("ingest.clean"):
+                if self.health is None:
+                    clean = bool(clean)
+                else:
+                    # the health step's clock comes back in the same transfer
+                    clean, t_last = torch.stack([clean.to(F64),
+                                                 ts[-1]]).tolist()
+                    clean = bool(clean)
         if not clean:
+            spans.count("ingest.fallbacks")
             rep = self.ingest(torch.repeat_interleave(dev, m), ts.repeat(d),
                               vals.reshape(-1))
             return (dataclasses.replace(rep, rejected=rep.rejected + n_rej)
                     if n_rej else rep)
-        self.epoch += 1
+        with spans.span("ingest.prep"):
+            self.epoch += 1
+            c = self.corrections
+            v = vals - c.baseline_w[dev][:, None]
+            had = st.has[dev]
+            run_t_in = torch.where(had, st.run_t[dev], ts[0])
+        with spans.span("ingest.kernel"):
+            out = stream_ingest_grid(
+                ts, v, st.last_t[dev], st.last_v[dev], had, run_t_in,
+                st.n_changes[dev], c.gain[dev], c.offset_w[dev],
+                c.time_shift_s[dev], self._win_a[dev], self._win_b[dev],
+                self._max_hold[dev], self._env_lo[dev], self._env_hi[dev],
+                self.trapezoid)
 
-        c = self.corrections
-        v = vals - c.baseline_w[dev][:, None]
-        had = st.has[dev]
-        run_t_in = torch.where(had, st.run_t[dev], ts[0])
-        out = stream_ingest_grid(
-            ts, v, st.last_t[dev], st.last_v[dev], had, run_t_in,
-            st.n_changes[dev], c.gain[dev], c.offset_w[dev],
-            c.time_shift_s[dev], self._win_a[dev], self._win_b[dev],
-            self._max_hold[dev], self._env_lo[dev], self._env_hi[dev],
-            self.trapezoid)
+        with spans.span("ingest.fold"):
+            # ring snapshots see running totals *before* this slab is folded
+            if self.ring.slots:
+                self.ring.write_grid(
+                    dev, ts, v, st.energy_j[dev][:, None] + out.cum_e,
+                    st.energy_corr_j[dev][:, None] + out.cum_ec)
+            else:
+                self.ring.n_written[dev] += m
 
-        # ring snapshots see running totals *before* this slab is folded
-        if self.ring.slots:
-            self.ring.write_grid(dev, ts, v,
-                                 st.energy_j[dev][:, None] + out.cum_e,
-                                 st.energy_corr_j[dev][:, None] + out.cum_ec)
-        else:
-            self.ring.n_written[dev] += m
+            old_last_t = st.last_t[dev]
+            st.first_t[dev] = torch.where(had, st.first_t[dev], ts[0])
+            st.last_t[dev] = ts[-1]
+            st.last_v[dev] = out.new_v
+            with spans.read("ingest.has"):     # a scalar sent to the card
+                st.has[dev] = True
+            st.n_samples[dev] += m
+            st.energy_j[dev] += out.d_energy
+            st.energy_corr_j[dev] += out.d_energy_corr
+            st.win_j[dev] += out.d_win
+            st.win_corr_j[dev] += out.d_win_corr
+            st.run_t[dev] = out.new_run_t
+            st.n_changes[dev] = out.new_n_changes
+            st.n_out[dev] += out.n_out
 
-        old_last_t = st.last_t[dev]
-        st.first_t[dev] = torch.where(had, st.first_t[dev], ts[0])
-        st.last_t[dev] = ts[-1]
-        st.last_v[dev] = out.new_v
-        st.has[dev] = True
-        st.n_samples[dev] += m
-        st.energy_j[dev] += out.d_energy
-        st.energy_corr_j[dev] += out.d_energy_corr
-        st.win_j[dev] += out.d_win
-        st.win_corr_j[dev] += out.d_win_corr
-        st.run_t[dev] = out.new_run_t
-        st.n_changes[dev] = out.new_n_changes
-        st.n_out[dev] += out.n_out
+            mean_vc = out.sum_vc / m
+            alpha = torch.exp(-torch.clamp_min(ts[-1] - old_last_t, 0.0)
+                              / self.drift_tau_s)
+            st.ewma_w[dev] = torch.where(
+                had, alpha * st.ewma_w[dev] + (1.0 - alpha) * mean_vc,
+                mean_vc)
 
-        mean_vc = out.sum_vc / m
-        alpha = torch.exp(-torch.clamp_min(ts[-1] - old_last_t, 0.0)
-                          / self.drift_tau_s)
-        st.ewma_w[dev] = torch.where(
-            had, alpha * st.ewma_w[dev] + (1.0 - alpha) * mean_vc, mean_vc)
-
-        rec = out.run_rec
-        self.periods.record(dev[:, None].expand(d, m)[rec], out.run_dur[rec])
+            rec = out.run_rec
+            with spans.read("ingest.runs", 2):
+                rec_dev = dev[:, None].expand(d, m)[rec]
+                rec_dur = out.run_dur[rec]
+            self.periods.record(rec_dev, rec_dur)
 
         self._merge_label_moments(self._label_codes[dev],
                                   torch.full_like(dev, m), out.sum_vc,
                                   out.sum_vc2, out.sum_abs_vc,
                                   out.max_abs_vc)
         if self.health is not None:
-            self._maybe_update_health(t_last)
+            with spans.span("ingest.fold"):
+                self._maybe_update_health(t_last)
         return IngestReport(d * m, 0, 0, 0, d, n_rej)
 
     def _merge_label_moments(self, codes, n, s1, s2, sa, mx):
@@ -501,22 +543,24 @@ class IngestCore:
         Each row (a device) has label ``codes``, ``n`` samples and the
         sums ``s1``/``s2``/``sa`` of vc, vc², |vc| and the max ``mx`` of
         |vc|.  The [labels] vectors come to the host once per slab."""
-        nl = len(self._label_names)
-        z = torch.zeros(nl, dtype=F64, device=codes.device)
-        red = torch.stack([
-            z.index_add(0, codes, n.to(F64)),
-            z.index_add(0, codes, s1), z.index_add(0, codes, s2),
-            z.index_add(0, codes, sa),
-            z.scatter_reduce(0, codes, mx, "amax", include_self=True)])
-        cnt, s1h, s2h, sah, mxh = red.cpu().numpy()
-        for ci in np.flatnonzero(cnt):
-            nb = int(cnt[ci])
-            mean = s1h[ci] / nb
-            m2 = max(float(s2h[ci] - nb * mean * mean), 0.0)
-            self._moments.setdefault(
-                self._label_names[ci], StreamingMoments()).merge(
-                    nb, float(mean), m2, float(sah[ci] / nb),
-                    float(mxh[ci]))
+        with spans.span("ingest.moments"):
+            nl = len(self._label_names)
+            z = torch.zeros(nl, dtype=F64, device=codes.device)
+            red = torch.stack([
+                z.index_add(0, codes, n.to(F64)),
+                z.index_add(0, codes, s1), z.index_add(0, codes, s2),
+                z.index_add(0, codes, sa),
+                z.scatter_reduce(0, codes, mx, "amax", include_self=True)])
+            with spans.read("ingest.moments"):
+                cnt, s1h, s2h, sah, mxh = red.cpu().numpy()
+            for ci in np.flatnonzero(cnt):
+                nb = int(cnt[ci])
+                mean = s1h[ci] / nb
+                m2 = max(float(s2h[ci] - nb * mean * mean), 0.0)
+                self._moments.setdefault(
+                    self._label_names[ci], StreamingMoments()).merge(
+                        nb, float(mean), m2, float(sah[ci] / nb),
+                        float(mxh[ci]))
 
     # -- health -----------------------------------------------------------
     def _maybe_update_health(self, t_now: float) -> None:

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.common import spans
 from repro_torch.core.stream import schema
 
 F64, I64 = torch.float64, torch.int64
@@ -98,12 +99,15 @@ class IngestBuffer:
         group, group size), ``u_dev``/``counts`` per group [U]."""
         if self.slots:
             keep = ordinal >= group_count - self.slots
-            d = dev[keep]
-            slot = (self.n_written[d] + ordinal[keep]) % self.slots
-            self.t.index_put_((d, slot), t[keep])
-            self.v.index_put_((d, slot), v[keep])
-            self.e_raw.index_put_((d, slot), e_raw[keep])
-            self.e_corr.index_put_((d, slot), e_corr[keep])
+            with spans.read("ingest.ring", 6):
+                d, o = dev[keep], ordinal[keep]
+                t, v = t[keep], v[keep]
+                e_raw, e_corr = e_raw[keep], e_corr[keep]
+            slot = (self.n_written[d] + o) % self.slots
+            self.t.index_put_((d, slot), t)
+            self.v.index_put_((d, slot), v)
+            self.e_raw.index_put_((d, slot), e_raw)
+            self.e_corr.index_put_((d, slot), e_corr)
         self.n_written[u_dev] += counts
 
     def write_grid(self, dev, t, v, e_raw, e_corr) -> None:

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.common import spans
 from repro_torch.engine_backend.pytrees import (PollGrid, ReadingSchedule,
                                                 TimelineArrays)
 
@@ -289,7 +290,8 @@ def err_moments(e: torch.Tensor) -> Tuple[int, float, float, float, float]:
     mean = e.mean()
     ae = e.abs()
     out = torch.stack([mean, ((e - mean) ** 2).sum(), ae.mean(), ae.max()])
-    m, m2, ma, mx = out.tolist()
+    with spans.read("audit.moments"):
+        m, m2, ma, mx = out.tolist()
     return n, m, m2, ma, mx
 
 

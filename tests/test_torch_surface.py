@@ -121,7 +121,7 @@ TOOLS_OMITTED = {
 }
 #: the port's own tools (``tests/test_torch_guard.py`` checks their
 #: imports, and those of the ``torch_`` twins)
-PORT_TOOLS = ("kernel_split.py", "rglru_bwd_sweep.py")
+PORT_TOOLS = ("kernel_split.py", "rglru_bwd_sweep.py", "span_report.py")
 
 
 def _modules():
