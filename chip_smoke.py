@@ -341,6 +341,8 @@ REPLACES = {
         "src/repro/core/engine_backend/pallas_backend.py:99",
     "stream_ingest_grid":
         "src/repro/core/engine_backend/pallas_backend.py:276",
+    "stream_group": "none: the reference's np.lexsort, "
+                    "src/repro/core/stream/ingest.py:298",
     "log_filter": "src/repro/core/engine_backend/pallas_backend.py:497",
     "step_integrate":
         "src/repro/core/engine_backend/pallas_backend.py:424",
@@ -1055,6 +1057,7 @@ def run(dev, n_devices, stream_s, flat_s):
     from repro_torch.core.stream import ingest as ingest_mod
     from repro_torch.engine_backend import torch_backend as tb
     from repro_torch.kernels import _build
+    from repro_torch.kernels.stream_group import stream_group
     from repro_torch.kernels.stream_ingest import stream_ingest
     from repro_torch.kernels.stream_ingest_grid import stream_ingest_grid
     from repro_torch.serve.monitor_service import (MonitorQuery,
@@ -1192,6 +1195,7 @@ def run(dev, n_devices, stream_s, flat_s):
     flat = monitor(dev, names, shifts)
     stream_ingest_grid.launches = 0
     stream_ingest.launches = 0
+    stream_group.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for d, t, v in flat_slabs(bank, flat_s, dev):
@@ -1199,12 +1203,17 @@ def run(dev, n_devices, stream_s, flat_s):
     torch.cuda.synchronize()
     flat_secs = time.perf_counter() - t0
     results["stream_ingest"]["launches"] = stream_ingest.launches
+    group_launches = stream_group.launches
     check(stream_ingest.launches > 0, "flat path ran no flat kernel")
+    check(group_launches == 3 * stream_ingest.launches,
+          f"flat path: {group_launches} stream_group launches for "
+          f"{stream_ingest.launches} slabs")
     check(stream_ingest_grid.launches == 0, "flat path ran the grid kernel")
     n_flat = n_devices * int(round(flat_s / PERIOD_S))
     log(f"flat path: {n_flat} permuted samples in {flat_secs:.2f} s "
         f"({n_flat / flat_secs / 1e6:.1f} M samples/s incl. the source), "
-        f"{stream_ingest.launches} kernel launches")
+        f"{stream_ingest.launches} kernel launches, {group_launches} "
+        f"stream_group launches")
     check(at_flat_end.pop("counters") == flat.counters,
           "grid and flat monitors count differently at 2 s")
     flat_counters, flat_state = flat.counters, convert.monitor_arrays(flat)
@@ -1294,6 +1303,9 @@ def run(dev, n_devices, stream_s, flat_s):
     slabs = list(flat_slabs(bank, flat_s, dev))
     ingest_alone(slabs, False, "flat", n_flat, flat_counters, flat_state)
     del mon, slabs, flat_state
+    torch.cuda.empty_cache()
+    results["stream_group"] = group_timing(dev, n_devices)
+    results["stream_group"]["launches"] = group_launches
 
     # -- 4. a small fleet on the card against the plain path on the CPU ------
     for grid in (True, False):
@@ -1325,6 +1337,122 @@ def run(dev, n_devices, stream_s, flat_s):
     for name in ("stream_ingest", "stream_ingest_grid"):
         results[name].update(added[name])
     return list(results.values()), added["fma_chain"]
+
+
+def group_timing(dev, n_devices, m=500, dup_share=0.01):
+    """3e. ``stream_group`` at the shuffled cell's slab: ``n_devices`` x
+    ``m`` ticks with ``dup_share`` of them sent twice, in a seeded random
+    order, after a first slab (every device has a newest sample): the
+    kernels against the plain route on the same card bit for bit, both
+    timed, the kernels' device time by kernel; then a collector-sized slab
+    (8 devices x 10 samples) on an 8-device and an ``n_devices`` state,
+    host ms a call of each route.  Returns the kernel's record."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import stream_group as ksg
+
+    f64 = torch.float64
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    ids = torch.arange(n_devices, device=dev).repeat_interleave(m)
+    t = (0.501 + 0.001 * torch.arange(m, device=dev, dtype=f64)).repeat(
+        n_devices)
+    v = 60.0 + 190.0 * torch.rand(ids.numel(), generator=g, device=dev,
+                                  dtype=f64)
+    pick = torch.randint(0, ids.numel(), (round(dup_share * ids.numel()),),
+                         generator=g, device=dev)
+    perm = torch.randperm(ids.numel() + pick.numel(), generator=g,
+                          device=dev)
+    d, t, v = (torch.cat([x, x[pick]])[perm] for x in (ids, t, v))
+    del ids, pick, perm
+
+    def state(n):
+        base = 6.0 * torch.rand(n, generator=g, device=dev, dtype=f64) - 3.0
+        return (torch.ones(n, dtype=torch.bool, device=dev),
+                torch.full((n,), 0.5, dtype=f64, device=dev),
+                torch.zeros(n, dtype=torch.int64, device=dev),
+                torch.zeros(n, dtype=torch.int64, device=dev), base)
+
+    has, last_t, nd, nl, base = state(n_devices)
+    nd2, nl2 = nd.clone(), nl.clone()
+    got = ksg.stream_group(d, t, v, has, last_t, nd, nl, base)
+    want = ksg.stream_group_plain(d, t, v, has, last_t, nd2, nl2, base)
+    torch.cuda.synchronize()
+    for f in ksg.Grouped._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, torch.Tensor):
+            same = a.dtype == b.dtype and a.shape == b.shape and bool(
+                (a.view(torch.int64) == b.view(torch.int64)).all()
+                if a.dtype == f64 else (a == b).all())
+        else:
+            same = a == b
+        check(same, f"3e: stream_group {f} differs from the plain route")
+    check(torch.equal(nd, nd2) and torch.equal(nl, nl2),
+          "3e: stream_group's drop counters differ from the plain route")
+    k_in, kept, groups = d.numel(), got.dev.numel(), got.u_dev.numel()
+    del got, want
+
+    def kernel():
+        ksg.stream_group(d, t, v, has, last_t, nd, nl, base)
+
+    def plain():
+        ksg.stream_group_plain(d, t, v, has, last_t, nd2, nl2, base)
+
+    ms = time_ms(kernel, 10)
+    plain_ms = time_ms(plain, 3)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kernel()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if "group_" in e.key or "Memset" in e.key:
+            name = re.sub(r".*(group_\w+?_kernel(?:<\d+>)?).*", r"\1", e.key)
+            by_kernel[name] = by_kernel.get(name, 0.0) + (
+                e.device_time_total / 5 / 1e3)
+    device_ms = sum(by_kernel.values())
+    # least bytes: the slab and the state read once, the outputs written
+    # once (dev, t, v, seg, first a kept sample; bounds and device a group)
+    nbytes = (k_in * 24 + n_devices * (1 + 8 + 8 + 2 * 16)
+              + kept * 33 + groups * 24)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"3e: stream_group at [{k_in} samples, {n_devices} devices] "
+        f"({kept} kept in {groups} groups): call {ms:.3f} ms, device "
+        f"{device_ms:.3f} ms ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items())
+        + f"), plain route {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({nbytes} B), {bound_ms / device_ms:.1%} of the bound; bitwise "
+        f"the plain route")
+    del d, t, v, has, last_t, nd, nl, nd2, nl2, base
+    torch.cuda.empty_cache()
+
+    small = {}
+    for n in (8, n_devices):
+        st = state(n)
+        sd = torch.arange(8, device=dev).repeat_interleave(10)
+        sd = sd[torch.randperm(80, generator=g, device=dev)]
+        stt = torch.rand(80, generator=g, device=dev, dtype=f64)
+        sv = 100.0 + stt
+        for label, fn in (("kernels", ksg.stream_group),
+                          ("plain", ksg.stream_group_plain)):
+            fn(sd, stt, sv, *st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn(sd, stt, sv, *st)
+            torch.cuda.synchronize()
+            small[f"{label}_{n}"] = (time.perf_counter() - t0) / 200 * 1e3
+    log("3e: stream_group on 80 samples of 8 devices, host ms a call: "
+        + ", ".join(f"{k} devices {v:.4f}" for k, v in small.items()))
+    return dict(
+        name="stream_group", route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{_build.SOURCES['stream_group']}",
+        replaces=REPLACES["stream_group"], launches=0, max_abs_err=0.0,
+        ms=device_ms, call_ms=ms, by_kernel=by_kernel, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+        shape=[k_in, n_devices], bytes=nbytes,
+        gb_per_s=nbytes / (device_ms * 1e-3) / 1e9,
+        small_slab_ms=small)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro_torch.core.stream.estimators import (OnlinePeriodEstimator,
                                                 StreamCorrections)
 from repro_torch.core.stream.health import HealthPolicy, HealthTracker
 from repro_torch.core.stream.state import DeviceState, IngestBuffer
+from repro_torch.kernels.stream_group import stream_group
 from repro_torch.kernels.stream_ingest import stream_ingest
 from repro_torch.kernels.stream_ingest_grid import stream_ingest_grid
 
@@ -287,75 +288,26 @@ class IngestCore:
             if not (dev.shape == t.shape == v.shape):
                 raise ValueError(f"shape mismatch: dev {tuple(dev.shape)}, "
                                  f"t {tuple(t.shape)}, v {tuple(v.shape)}")
-            n_rej = 0
-            if dev.numel():
-                ok_id = self._check_ids(dev)
-                if ok_id is not None:
-                    with spans.read("ingest.ids", 4):
-                        n_rej = int(ok_id.numel() - ok_id.sum())
-                        self._n_rejected += n_rej
-                        dev, t, v = dev[ok_id], t[ok_id], v[ok_id]
-            k_in = dev.numel()
-            if k_in == 0:
+            # ids and finiteness checked, sorted by (device, t, arrival),
+            # duplicates and late samples dropped and counted, baselined,
+            # grouped by device: one kernel pipeline on the card
+            g = stream_group(dev, t, v, st.has, st.last_t, st.n_dup,
+                             st.n_late, self.corrections.baseline_w,
+                             self.strict_ids)
+            n_rej = g.rejected
+            self._n_rejected += n_rej
+            if g.in_range == 0:
                 if n_rej:               # counters mutated: publish fresh
                     self.epoch += 1
                 return IngestReport(0, 0, 0, 0, 0, n_rej)
             # even an all-dropped slab mutates counters: publish fresh
             self.epoch += 1
-
-            ok = torch.isfinite(t) & torch.isfinite(v)
-            with spans.read("ingest.finite"):
-                n_invalid = int(k_in - ok.sum())
-            if n_invalid:
-                self._n_invalid += n_invalid
-                with spans.read("ingest.finite", 3):
-                    dev, t, v = dev[ok], t[ok], v[ok]
-
-            # np.lexsort((t, dev)) as two stable sorts: by t, then by device
-            order = torch.sort(t, stable=True).indices
-            dev, t, v = dev[order], t[order], v[order]
-            order = torch.sort(dev, stable=True).indices
-            dev, t, v = dev[order], t[order], v[order]
-
-            # duplicates: same (device, t) — keep the first arrival
-            dup = torch.zeros_like(dev, dtype=torch.bool)
-            dup[1:] = (dev[1:] == dev[:-1]) & (t[1:] == t[:-1])
-            # vs stored state: strictly older samples arrive late, a repeat
-            # of the newest timestamp is a duplicate
-            has_d = st.has[dev]
-            last_d = st.last_t[dev]
-            late = ~dup & has_d & (t < last_d)
-            dropped = dup | (~dup & has_d & (t == last_d))
-            with spans.read("ingest.dups"):
-                n_dup, n_late = (int(x) for x in torch.stack(
-                    [dropped.sum(), late.sum()]).tolist())
-            if n_dup:
-                with spans.read("ingest.dups"):
-                    st.n_dup.index_add_(0, dev[dropped], torch.ones(
-                        n_dup, dtype=I64, device=d0))
-            if n_late:
-                with spans.read("ingest.dups"):
-                    st.n_late.index_add_(0, dev[late], torch.ones(
-                        n_late, dtype=I64, device=d0))
-            keep = ~(dropped | late)
-            with spans.read("ingest.keep", 3):
-                dev, t, v = dev[keep], t[keep], v[keep]
+            n_invalid, n_dup, n_late = g.invalid, g.duplicates, g.late
+            self._n_invalid += n_invalid
+            dev, t, v, seg, first, start_idx, end_idx, u_dev = g[:8]
             k = dev.numel()
             if k == 0:
                 return IngestReport(0, n_dup, n_late, n_invalid, 0, n_rej)
-
-            v = v - self.corrections.baseline_w[dev]
-
-            # compact to per-slab groups (devices sorted => contiguous)
-            first = torch.ones_like(dev, dtype=torch.bool)
-            first[1:] = dev[1:] != dev[:-1]
-            with spans.read("ingest.groups"):
-                start_idx = torch.nonzero(first)[:, 0]
-            end_idx = torch.cat([start_idx[1:] - 1,
-                                 torch.full((1,), k - 1, dtype=I64,
-                                            device=d0)])
-            u_dev = dev[start_idx]
-            seg = torch.cumsum(first, 0) - 1
 
             had = st.has[u_dev]
             c = self.corrections

@@ -2,6 +2,8 @@
 
 * :mod:`.stream_ingest` — the monitor's general slab kernel;
 * :mod:`.stream_ingest_grid` — its rectangular clean-slab fast path;
+* :mod:`.stream_group` — the general path's grouping of a flat slab by
+  device (no TPU kernel: the reference sorts with ``np.lexsort``);
 * :mod:`.log_filter` — the Kepler/Maxwell sensor filter of the fleet
   audit's sensor simulation;
 * :mod:`.step_integrate` — the §5 protocol's integral of a polled

@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "stream_ingest": "stream_ingest.cu",
     "stream_ingest_grid": "stream_ingest_grid.cu",
+    "stream_group": "stream_group.cu",
     "log_filter": "log_filter.cu",
     "step_integrate": "step_integrate.cu",
     "fma_chain": "fma_chain.cu",

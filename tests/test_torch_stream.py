@@ -149,6 +149,53 @@ def test_messy_slabs_match_reference(integration, ring_slots):
     _fingerprints_close(_query_fingerprint(ref), _query_fingerprint(port))
 
 
+def _messier(slab, rng, n):
+    """A messy slab with what the grouping must drop or keep: -0.0 next
+    to +0.0, non-finite samples, ids out of range, repeats of a slab
+    ago's times (late or a repeat of the stored newest)."""
+    dev, t, v = (np.array(x, copy=True) for x in slab)
+    k = dev.size
+    t[rng.random(k) < 0.03] = np.nan
+    v[rng.random(k) < 0.03] = np.inf
+    dev[rng.random(k) < 0.03] = n + 1
+    old = rng.random(k) < 0.05
+    t[old] -= 0.5
+    extra = np.arange(4) % n
+    return (np.r_[dev, extra, extra], np.r_[t, np.zeros(4), -np.zeros(4)],
+            np.r_[v, np.arange(4.0), 10.0 + np.arange(4.0)])
+
+
+@pytest.mark.parametrize("ring_slots", [0, 3])
+def test_flat_ingest_through_stream_groups_plain_version(ring_slots,
+                                                         monkeypatch):
+    """``IngestCore.ingest`` on CPU tensors groups each slab through
+    ``stream_group``'s plain version and gives the reports and state of
+    the prep it replaced, the reference's, on the messy slabs made
+    messier; an empty and an all-dropped slab too."""
+    from repro_torch.core.stream import ingest as ingest_mod
+    from repro_torch.kernels import stream_group as ksg
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].device.type)
+        return ksg.stream_group(*args)
+
+    monkeypatch.setattr(ingest_mod, "stream_group", plain)
+    kw = dict(max_hold_s=2.0, ring_slots=ring_slots, strict_ids=False)
+    ref, port = _pair(9, seed=4, **kw)
+    rng = np.random.default_rng(11)
+    slabs = [_messier(s, rng, 9) for s in _slabs(9, n_slabs=5, seed=2)]
+    slabs += [(np.zeros(0, np.int64), np.zeros(0), np.zeros(0)),
+              slabs[-1]]                  # all dropped: sent again
+    for dev, t, v in slabs:
+        rep_r = ref.ingest(dev.copy(), t.copy(), v.copy())
+        rep_t = port.ingest(dev, t, v)
+        assert dataclasses.asdict(rep_r) == dataclasses.asdict(rep_t)
+    assert rep_t.accepted == 0 and rep_t.duplicates + rep_t.late > 0
+    assert calls == ["cpu"] * len(slabs)
+    assert_same_state(ref, port)
+
+
 # ---------------------------------------------------------------------------
 # grid path vs flat path, and the dirty-slab fallback
 # ---------------------------------------------------------------------------
