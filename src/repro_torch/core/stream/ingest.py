@@ -9,9 +9,11 @@ kernel) and ``ingest_grid`` for clean rectangular slabs (the CUDA
 ``stream_ingest_grid`` kernel).  It serves no queries: readers go through
 the :class:`~.snapshot.MonitorSnapshot` the façade publishes.
 
-Every slab that lands bumps :attr:`epoch`.  With a
-:class:`~.health.HealthPolicy` the health machine runs at slab
-boundaries (at most every ``health_every_s`` of stream time);
+Every slab that lands bumps :attr:`epoch`; the samples a slab's prep
+drops are counted under ``ingest.dropped.{rejected,invalid,duplicates,
+late}``.  With a :class:`~.health.HealthPolicy` the health machine runs
+at slab boundaries (at most every ``health_every_s`` of stream time) in
+its own phase span ``ingest.health``;
 :meth:`IngestCore.grow` widens the monitor mid-stream; the state's field
 set is :mod:`.schema`'s, which checkpoints and ``nbytes()`` walk.
 """
@@ -296,6 +298,7 @@ class IngestCore:
                              self.strict_ids)
             n_rej = g.rejected
             self._n_rejected += n_rej
+            self._count_drops(n_rej, g.invalid, g.duplicates, g.late)
             if g.in_range == 0:
                 if n_rej:               # counters mutated: publish fresh
                     self.epoch += 1
@@ -365,7 +368,7 @@ class IngestCore:
                                   out.sum_vc, out.sum_vc2, out.sum_abs_vc,
                                   out.max_abs_vc)
         if self.health is not None:
-            with spans.span("ingest.fold"):
+            with spans.span("ingest.health"):
                 with spans.read("ingest.health"):
                     t_now = float(out.new_t.max())
                 self._maybe_update_health(t_now)
@@ -405,6 +408,7 @@ class IngestCore:
                     n_rej = int(ok_id.numel() - ok_id.sum()) * m
                     self._n_rejected += n_rej
                     dev, vals = dev[ok_id], vals[ok_id]
+                self._count_drops(n_rej, 0, 0, 0)
                 d = dev.numel()
                 if d == 0:
                     self.epoch += 1     # counters mutated: publish fresh
@@ -486,7 +490,7 @@ class IngestCore:
                                   out.sum_vc2, out.sum_abs_vc,
                                   out.max_abs_vc)
         if self.health is not None:
-            with spans.span("ingest.fold"):
+            with spans.span("ingest.health"):
                 self._maybe_update_health(t_last)
         return IngestReport(d * m, 0, 0, 0, d, n_rej)
 
@@ -515,6 +519,14 @@ class IngestCore:
                         float(mxh[ci]))
 
     # -- health -----------------------------------------------------------
+    def _count_drops(self, rejected: int, invalid: int, duplicates: int,
+                     late: int) -> None:
+        """Count the samples a slab's prep dropped (host ints it already
+        holds: no read) under ``ingest.dropped.<reason>``."""
+        for name, n in (("rejected", rejected), ("invalid", invalid),
+                        ("duplicates", duplicates), ("late", late)):
+            spans.count("ingest.dropped." + name, n)
+
     def _maybe_update_health(self, t_now: float) -> None:
         """Run the health machine at a slab boundary, at most once per
         ``health_every_s`` of stream time.  Time going backward across

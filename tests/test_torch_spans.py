@@ -241,8 +241,12 @@ def test_a_flat_slab_records_its_phases_and_reads():
                             "read.ingest.ring", "read.ingest.has",
                             "read.ingest.runs", "read.ingest.moments"])
     # ids, finite, dups, the duplicate's mask, keep (3), groups, ring (6),
-    # has, runs (2), moments
-    assert rec.counters == {"ingest.host_reads": 18}
+    # has, runs (2), moments; the prep's drops (the slab's one duplicate)
+    assert rec.counters == {"ingest.host_reads": 18,
+                            "ingest.dropped.rejected": 0,
+                            "ingest.dropped.invalid": 0,
+                            "ingest.dropped.duplicates": 1,
+                            "ingest.dropped.late": 0}
 
 
 def _state(mon):
@@ -266,6 +270,100 @@ def test_recording_leaves_the_monitor_bitwise_as_it_was():
     assert c_on == c_off and m_on == m_off
     for k in a_off:
         assert torch.equal(a_on[k], a_off[k]), k
+
+
+
+# -- the health machine's phase and the drop counters ---------------------
+DROPPED = ("ingest.dropped.rejected", "ingest.dropped.invalid",
+           "ingest.dropped.duplicates", "ingest.dropped.late")
+
+
+def _hardened(health=True):
+    from repro_torch.core.stream import HealthPolicy
+    labels = np.array(["train", "infer", "idle"] * (N_DEV // 3),
+                      dtype=object)
+    return MonitorService(N_DEV, labels=labels, ring_slots=4,
+                          strict_ids=False,
+                          health=HealthPolicy() if health else None,
+                          health_every_s=0.5, silent_after_s=1.0,
+                          device=CPU)
+
+
+def _dirty_flat_slab(k):
+    """A flat slab with one duplicate (from ``_flat_slab``), one
+    out-of-range id, one NaN reading and one sample older than the
+    device's newest accepted one."""
+    dev, t, v = _flat_slab(k)
+    dev, t, v = dev.clone(), t.clone(), v.clone()
+    dev[1] = N_DEV + 2
+    v[2] = float("nan")
+    late = torch.tensor([0.0005])
+    return (torch.cat([dev, torch.tensor([dev[3]])]), torch.cat([t, late]),
+            torch.cat([v, torch.tensor([100.0])]))
+
+
+@pytest.mark.parametrize("health", [True, False], ids=["health", "no_health"])
+def test_the_health_phase_and_drop_counters_only_with_health(health):
+    """The phase ``ingest.health`` comes with a health policy; the drop
+    counters are the prep's and come either way."""
+    mon = _hardened(health)
+    mon.ingest_grid(*_grid_slab(0))
+    spans.enable()
+    rep = mon.ingest(*_dirty_flat_slab(1))
+    rec = spans.recorded()
+    assert (rep.rejected, rep.invalid, rep.duplicates, rep.late) == (
+        1, 1, 1, 1)
+    top = _one(rec, "ingest.flat")
+    phases = ["ingest.prep", "ingest.kernel", "ingest.fold",
+              "ingest.moments"]
+    byid = _by_id(rec)
+    if health:
+        assert _phases(rec, top) == phases + ["ingest.health"]
+        assert byid[_one(rec, "read.ingest.health").parent].name == \
+            "ingest.health"
+    else:
+        assert _phases(rec, top) == phases
+        assert not any(s.name.endswith("health") for s in rec.spans)
+    assert {k: rec.counters[k] for k in DROPPED} == dict.fromkeys(DROPPED, 1)
+    # ids, their mask (4), finite, its mask (3), dups, the duplicate's
+    # mask, the late one's mask, keep (3), groups, ring (6), has, runs (2),
+    # moments; with health the step's clock: the counters add no read
+    assert rec.counters["ingest.host_reads"] == 1 + 4 + 1 + 3 + 1 + 1 + 1 \
+        + 3 + 1 + 6 + 1 + 2 + 1 + (1 if health else 0)
+
+
+def test_a_grid_slab_runs_the_health_step_in_its_own_phase():
+    mon = _hardened()
+    mon.ingest_grid(*_grid_slab(0))
+    spans.enable()
+    dev, ts, vals = _grid_slab(1)
+    rep = mon.ingest_grid(torch.cat([dev, torch.tensor([N_DEV])]), ts,
+                          torch.cat([vals, vals[:1]]))
+    rec = spans.recorded()
+    assert rep.rejected == M
+    top = _one(rec, "ingest.grid")
+    assert _phases(rec, top) == ["ingest.prep", "ingest.prep",
+                                 "ingest.kernel", "ingest.fold",
+                                 "ingest.moments", "ingest.health"]
+    assert rec.counters["ingest.dropped.rejected"] == M
+    # ids (1 + 3 for the rejection), clean (with the health clock), has,
+    # runs (2), moments: the health step reads nothing of its own here
+    assert rec.counters["ingest.host_reads"] == 4 + 1 + 1 + 2 + 1
+
+
+def test_recording_leaves_the_hardened_monitor_bitwise_as_it_was():
+    off, on = _hardened(), _hardened()
+    for mon in (off, on):
+        if mon is on:
+            spans.enable()
+        mon.ingest_grid(*_grid_slab(0))
+        mon.ingest(*_dirty_flat_slab(1))
+        mon.ingest_grid(*_grid_slab(2, dirty=True))
+    assert on.counters == off.counters
+    for k in ("code", "since_t", "n_quarantines"):
+        assert torch.equal(getattr(on.health, k), getattr(off.health, k)), k
+    for f in schema.DEVICE_STATE_FIELDS:
+        assert torch.equal(getattr(on.state, f), getattr(off.state, f)), f
 
 
 # -- the fleet audit -----------------------------------------------------
